@@ -2,14 +2,13 @@
 
 The MFU numerator for the matmul-dominated rows is an exact MAC count,
 but the elementwise per-source constants (rotation 40, beam eval 22,
-coherency 80) are engineering estimates -- and on the VPU-bound rows
-(tutorial 8.5%, eigen 19%) the MFU claim is only as good as those
-constants. This script compares, for each headline program, the analytic
+coherency 80) are engineering estimates -- and on the elementwise-bound
+rows the MFU claim is only as good as those constants. This script compares, for each headline program, the analytic
 model's total against the compiled executable's own cost analysis
 (``Compiled.cost_analysis()``: HLO-level flops + transcendentals), which
 is the closest thing to a traced op count the runtime exposes.
 
-Interpretation (calibrated on v5e, round 5 -- details in NOTES.md):
+Interpretation:
 
 - XLA counts a ``while``-loop BODY once, ignoring the trip count, so the
   engine's per-time scan must be normalized out: compare the model's
@@ -18,15 +17,10 @@ Interpretation (calibrated on v5e, round 5 -- details in NOTES.md):
   (3-mult form); the model uses the textbook 8. Matmul-dominated rows
   therefore read model/XLA ~ 1.3 by convention alone.
 - 'transcendentals' count sin/cos/exp/rsqrt as ONE each; the model
-  costs them ~8-10 VPU flops.
+  costs them ~8-10 flops.
 
-Measured per-step ratios (v5e): tutorial 0.73 (model under by the
-fused elementwise tail), eigen 1.27, north-star 1.31 (both the complex
-convention). The elementwise constants contribute < 15% of every scored
-row, so the MFU error bars are ~+-30%, not the 2x the docstring
-previously allowed.
-
-Run on the TPU (the lowering differs from CPU):  python examples/calibrate_flops.py
+The ratios have not been measured on the GPU. Run on the GPU (the lowering
+differs from the CPU's):  python examples/calibrate_flops.py
 """
 
 import os

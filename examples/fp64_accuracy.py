@@ -1,16 +1,16 @@
-"""fp64-class accuracy on fp64-less hardware: the double-single path.
+"""fp64-class accuracy in an fp32 engine: the double-single path.
 
 Simulates a km-baseline array (phases ~1e4 rad, where plain fp32 loses
 ~2e-4 relative) three ways and compares against the exact float64
 direct-DFT oracle:
 
-  1. plain fp32 (what precision=2 resolves to on TPU),
+  1. plain fp32 (what precision=2 resolves to on the GPU),
   2. the compensated double-single direct path (eps below the fp32
      floor; complex128 output),
   3. the fp64 oracle itself (host NumPy).
 
 Run:  python examples/fp64_accuracy.py
-(on the TPU; the CPU backend realizes only part of the DS win -- see
+(on the GPU; the CPU backend realizes only part of the DS win -- see
 tests/test_ds_engine.py's module docstring.)
 """
 

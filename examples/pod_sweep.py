@@ -1,8 +1,8 @@
-"""Pod-scale sweep pattern: mesh sharding + block checkpointing.
+"""Multi-device sweep pattern: mesh sharding + block checkpointing.
 
 Demonstrates the intended production shape for large (nfreq x ntime)
 parameter sweeps (BASELINE config 5: SKA-low-like 512 stations, 1000 freqs
-x 100 times on a v5p pod):
+x 100 times on a multi-GPU cluster):
 
   - a (time, source) device mesh: time blocks data-parallel, the source
     axis sharded with one psum of the NUFFT fine grid per (time, freq);
@@ -12,8 +12,8 @@ x 100 times on a v5p pod):
 Run (any host; scales the workload down automatically):
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/pod_sweep.py
-For a real pod, call jax.distributed.initialize() first and raise the
-sizes.
+For a multi-host cluster, call fftvis_tpu.parallel.mesh.init_distributed()
+first and raise the sizes.
 """
 
 import os

@@ -1,33 +1,45 @@
-"""fftvis-tpu: a TPU-native interferometric visibility simulator.
+"""fftvis-tpu: a JAX interferometric visibility simulator.
 
 A from-scratch JAX/XLA framework with the capabilities of fftvis
 (tyler-a-cox/fftvis): NUFFT-accelerated visibility simulation from point
 sources or pixelized skies, with analytic / tabulated / per-antenna /
-eigenbeam primary beams, polarized or unpolarized, scalable over TPU device
-meshes.
+eigenbeam primary beams, polarized or unpolarized, on one NVIDIA GPU or
+sharded over a mesh of them.
 """
 
+import logging as _logging
 import os as _os
+
+# Cache directory when JAX_COMPILATION_CACHE_DIR is not set: a fixed path
+# at the checkout root (the path is part of the cache key).
+COMPILE_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache",
+)
 
 
 def _enable_compile_cache() -> None:
     """Persistent XLA compilation cache (disable: FFTVIS_NO_COMPILE_CACHE=1).
 
-    Remote/relayed TPU runtimes can take minutes per compile; the on-disk
-    cache makes every process after the first start in seconds."""
-    if _os.environ.get("FFTVIS_NO_COMPILE_CACHE"):
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and the
+    package sets no directory; otherwise the cache is
+    :data:`COMPILE_CACHE_DIR`. A failure to enable it is logged.
+    """
+    if _os.environ.get("FFTVIS_NO_COMPILE_CACHE") or _os.environ.get(
+        "JAX_COMPILATION_CACHE_DIR"
+    ):
         return
     try:
         import jax
 
-        path = _os.environ.get(
-            "FFTVIS_COMPILE_CACHE", _os.path.expanduser("~/.cache/fftvis_tpu_jax")
-        )
-        _os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
+        _os.makedirs(COMPILE_CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - older jax or read-only fs
-        pass
+    except Exception:
+        _logging.getLogger(__name__).warning(
+            "persistent compilation cache not enabled at %s",
+            COMPILE_CACHE_DIR, exc_info=True,
+        )
 
 
 _enable_compile_cache()

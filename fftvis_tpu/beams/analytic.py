@@ -13,8 +13,8 @@ SURVEY section 2.4). Conventions follow pyuvdata so the two ecosystems agree:
   - AiryBeam(diameter): 2 J1(x)/x with x = pi * diameter * sin(za) * f / c.
 
 All evaluations are pure jnp (traceable under jit/vmap); J1 is implemented
-from the Abramowitz & Stegun rational approximations since neither scipy nor
-jax.scipy Bessel functions are available on the TPU compute path.
+from the Abramowitz & Stegun rational approximations, since jax.scipy has no
+Bessel J1 to trace into the device program.
 """
 
 from __future__ import annotations

@@ -308,4 +308,4 @@ def _check_uniform(arr: np.ndarray, name: str, tol: float = 1e-8):
         return
     d = np.diff(arr)
     if np.any(np.abs(d - d[0]) > tol * max(abs(d[0]), 1e-12)):
-        raise ValueError(f"{name} must be uniformly spaced for TPU interpolation")
+        raise ValueError(f"{name} must be uniformly spaced for grid interpolation")

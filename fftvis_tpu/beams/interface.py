@@ -2,7 +2,7 @@
 
 Plays the role of pyuvdata's BeamInterface plus matvis's
 ``prepare_beam_unpolarized`` in the reference stack (ref wrapper.py:6-8,
-271-285), and adds the TPU-specific step: compiling each beam into a pure
+271-285), and adds the device-side step: compiling each beam into a pure
 JAX evaluation closure (:func:`prepare_beams`) used inside the jitted
 simulation program -- the replacement for per-chunk host-side
 ``compute_response`` calls (ref cpu/beams.py:62-74).
@@ -18,7 +18,7 @@ from ..core.hashing import cache_get_lru as _cache_get_lru
 from .analytic import AnalyticBeam
 from .gridded import GriddedBeam
 from .interp import (
-    interp_table_cl,
+    map_coordinates_2d_cl,
     spline_prefilter_2d,
     upsample_prefiltered_2d,
 )
@@ -310,9 +310,8 @@ def _prepare_beam_uncached(
                 "(check_azza_domain). Extend the beam grid to the horizon, "
                 "or set FFTVIS_ALLOW_BEAM_CLAMP=1 to clamp to the edge row."
             )
-    # Ship complex beam tables as a stacked (re, im) real array: complex
-    # buffers cannot cross the host/device boundary on some experimental
-    # TPU runtimes, and interpolation distributes over re/im anyway.
+    # Ship complex beam tables as a stacked (re, im) real array:
+    # interpolation distributes over re/im, so the gather stays real.
     host = gb.data_array
     is_complex = np.iscomplexobj(host)
     wrap = gb.az_wraps
@@ -350,10 +349,9 @@ def _prepare_beam_uncached(
             host.shape[-2], host.shape[-1],
         )
     # Relayout to channels-LAST (nfreq, ny, nx, chflat), chflat = the
-    # flattened ([2 reim,] nvec, nfeed) response axes: on TPU each
-    # interpolation tap then fetches one contiguous ch-vector instead of
-    # ch elements strided ny*nx apart (measured 1.7x on the gather-bound
-    # interpolation kernel; see map_coordinates_2d_cl).
+    # flattened ([2 reim,] nvec, nfeed) response axes: each interpolation
+    # tap then fetches one contiguous ch-vector instead of ch elements
+    # strided ny*nx apart (see map_coordinates_2d_cl).
     freq_axis = 3 if is_complex else 2
     ch_shape = host.shape[:freq_axis]
     host = np.moveaxis(host, freq_axis, 0)  # (nfreq, *ch_shape, ny, nx)
@@ -387,7 +385,7 @@ def _prepare_beam_uncached(
             xx = jnp.mod(az - az0, 2 * jnp.pi) / daz
         else:
             xx = (az - az0) / daz
-        vals = interp_table_cl(
+        vals = map_coordinates_2d_cl(
             dslice, yy, xx, order=order, wrap_x=wrap
         )  # (nsrc, chflat)
         vals = jnp.moveaxis(vals, 0, -1).reshape(ch_shape + (vals.shape[0],))
@@ -419,8 +417,7 @@ class BatchedPreparedBeams:
 
     ``table`` (host copy at ``.table``) may be passed as a traced program
     INPUT: large tables embedded as jit closure constants dominate the HLO
-    size and with it the remote-TPU compile time (a 37-beam table costs
-    minutes of AOT compile as a constant, seconds as an input).
+    size and with it the compile time.
     """
 
     def __init__(self, evaluate_fn, polarized: bool, nbeams: int, table):
@@ -488,7 +485,7 @@ def stack_prepared(prepared_list) -> BatchedPreparedBeams | None:
             xx = jnp.mod(az - az0, 2 * jnp.pi) / daz
         else:
             xx = (az - az0) / daz
-        vals = interp_table_cl(
+        vals = map_coordinates_2d_cl(
             dslice, yy, xx, order=order, wrap_x=wrap
         )  # (nsrc, K*chflat)
         vals = jnp.moveaxis(vals, 0, -1).reshape(

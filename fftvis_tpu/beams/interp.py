@@ -219,9 +219,9 @@ def upsample_prefiltered_2d(coeff, factor: int, wrap_x: bool = False):
     One-time host-side transform behind the ``FFTVIS_BEAM_UPSAMPLE`` knob:
     evaluating the order-3 spline at a ``factor``x-refined lattice yields a
     table whose ORDER-1 interpolation reproduces the cubic values exactly at
-    the refined nodes and bilinearly between them. On the gather-bound TPU
-    interpolation kernel this trades 16 taps/point for 4 at a (documented,
-    opt-in) accuracy cost of O((h/factor)^2) vs the cubic's O(h^4).
+    the refined nodes and bilinearly between them. This trades 16 gathered
+    taps per point for 4 at a (documented, opt-in) accuracy cost of
+    O((h/factor)^2) vs the cubic's O(h^4).
 
     Parameters
     ----------
@@ -263,40 +263,6 @@ def upsample_prefiltered_2d(coeff, factor: int, wrap_x: bool = False):
     return vals.reshape(coeff.shape[:-2] + (ny2, nx2))
 
 
-def interp_table_cl(data, y, x, order: int = 1, wrap_x: bool = False):
-    """Channels-last table interpolation with lowering dispatch.
-
-    FFTVIS_BEAM_EVAL=pallas routes to the Pallas one-hot-matmul evaluator
-    (beams/pallas_eval.py, gather-free); the default is the XLA gather
-    form (:func:`map_coordinates_2d_cl`). Measured on v5e at the scored
-    north-star/eigen table shapes the two are at PARITY (1.01x / 0.95x,
-    bit-matched to ~1e-7): the channels-last layout already amortizes the
-    tap gathers to ~2 ms per row, so the kernel is kept as a verified
-    alternative rather than the default.
-    """
-    import os
-
-    import jax
-
-    mode = os.environ.get("FFTVIS_BEAM_EVAL", "gather")
-    if mode == "pallas":
-        from ..nufft.pallas_util import interpret_shardmap_blocked
-        from .pallas_eval import (
-            pallas_beam_eval_ok,
-            pallas_map_coordinates_cl,
-        )
-
-        ny, nx, ch = (int(v) for v in data.shape)
-        rdt = np.result_type(data.dtype, np.float32)
-        if pallas_beam_eval_ok(ny, nx, ch, order, rdt, int(y.shape[0])) and (
-            not interpret_shardmap_blocked(data, y, x)
-        ):
-            return pallas_map_coordinates_cl(
-                data, y, x, order=order, wrap_x=wrap_x
-            )
-    return map_coordinates_2d_cl(data, y, x, order=order, wrap_x=wrap_x)
-
-
 def map_coordinates_2d_cl(
     data,
     y,
@@ -308,9 +274,8 @@ def map_coordinates_2d_cl(
 
     ``data`` is (ny, nx, ch) with the channel axis contiguous in memory, so
     every gathered tap is one contiguous ch-vector instead of ch elements
-    strided ny*nx apart -- on TPU the (npts*taps)-index flat gather over a
-    (ny*nx, ch) view measured 1.7x faster than the channels-first gather at
-    beam-table shapes (64 channels, 91x181 grid). Semantics match
+    strided ny*nx apart: one (npts*taps)-index flat gather over a
+    (ny*nx, ch) view. Semantics match
     :func:`map_coordinates_2d` exactly (order-1 clamp / order-3 mirror
     boundaries, optional periodic x); order 3 expects prefiltered data.
 

@@ -34,7 +34,9 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--hera", type=int, default=0,
                     help="use a hera-style hex array with this hex number")
     rp.add_argument("--outriggers", type=int, default=0)
-    rp.add_argument("--backend", default="tpu", choices=["tpu", "cpu", "direct"])
+    rp.add_argument(
+        "--backend", default="tpu", choices=["tpu", "gpu", "cpu", "direct"]
+    )
     rp.add_argument("--precision", type=int, default=2, choices=[1, 2])
     rp.add_argument("--polarized", action="store_true")
     rp.add_argument("--force-use-type3", action="store_true")

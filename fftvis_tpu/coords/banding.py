@@ -7,7 +7,7 @@ mask to zero the invisible half. The reference avoids that work by
 dynamically compacting above-horizon sources per chunk (ref
 cpu_simulate.py:940-945) -- impossible under jit's static shapes.
 
-The TPU-shaped equivalent planned here:
+The static-shape equivalent planned here:
 
 1. reorder the catalog: always-visible sources first, then
    sometimes-visible sources sorted by (visibility duty cycle, RA).

@@ -2,12 +2,12 @@
 
 The reference delegates this to matvis's CoordinateRotation classes, which in
 turn call ERFA (C) or astropy (ref /root/reference/src/fftvis/cpu/
-cpu_simulate.py:693-709). Neither is available here, and on TPU the right
-factorization is different anyway: the per-time ICRS->ENU transform is a
+cpu_simulate.py:693-709). Neither is available here, and on a device the
+right factorization is different anyway: the per-time ICRS->ENU transform is a
 single 3x3 matrix, so we compute those matrices once on the host in float64
 (this module) and apply them on-device as one batched matmul
 (ref cpu_simulate.py:937 ``coord_mgr.rotate`` + cpu/utils.py:5 ``inplace_rot``
-collapse into a single MXU contraction).
+collapse into a single matmul).
 
 Model implemented (equinox-based chain):
 

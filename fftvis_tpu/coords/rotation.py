@@ -2,7 +2,7 @@
 
 Replaces matvis's CoordinateRotation lifecycle (setup/rotate/select_chunk;
 ref /root/reference/src/fftvis/core/simulate.py:13 and cpu_simulate.py:
-693-709, 937-945) with a TPU-native split:
+693-709, 937-945) with a host/device split:
 
   - host (this module, float64 NumPy): per-time 3x3 ICRS->ENU matrices and
     aberration velocity vectors -- O(ntimes) tiny work;
@@ -85,7 +85,7 @@ class SourceRotation:
         """Drop sources below the horizon at EVERY simulated time.
 
         The reference compacts above-horizon sources dynamically per chunk
-        (ref cpu_simulate.py:940-945); static shapes forbid that on TPU,
+        (ref cpu_simulate.py:940-945); static shapes forbid that under jit,
         but sources whose zenith-cosine stays < -margin for every planned
         time contribute exactly zero (the device mask kills them) and can
         be dropped from the catalog before planning -- for a full-sky

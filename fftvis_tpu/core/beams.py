@@ -88,7 +88,7 @@ def plan_beam_pairs(antnums, baselines, beam_idx) -> BeamPairPlan:
 class BeamEvaluator(ABC):
     """Abstract beam evaluator (API parity with ref core/beams.py:10).
 
-    The TPU engine does not route beam evaluation through this class in the
+    The JAX engine does not route beam evaluation through this class in the
     hot path (beams become jitted closures; see
     :func:`fftvis_tpu.beams.interface.prepare_beams`); it exists for the
     public ``create_beam_evaluator`` API and host-side uses.

@@ -4,7 +4,7 @@ Host side: Stokes -> coherency conversion (parity with ref
 cpu/utils.py:26-81). Device side: the apparent-coherency products that the
 reference implements as four per-source Numba JIT kernels
 (ref cpu/beams.py:129-246) collapse here into batched complex einsums -- a
-single MXU-friendly contraction over the source axis, preserving the
+single contraction over the source axis, preserving the
 reference's exact algebra including its axis-0 (vector-component) flip for
 polarized sky models (ref cpu_simulate.py:138-156) and row ordering.
 """
@@ -93,8 +93,8 @@ def apparent_coherency_rows(e_i, e_j, flux, polarized: bool, polarized_sky: bool
         aj = jnp.flip(e_j, axis=0)
         coh = jnp.moveaxis(flux, 0, -1)  # (2, 2, nsrc)
         # Explicit sum over the size-2 vector axes: a dot_general with a
-        # 2-long contraction forces TPU layout-transpose copies of every
-        # (..., 2, 2, nsrc) operand, which dominates the whole program.
+        # 2-long contraction would need layout-transpose copies of every
+        # (..., 2, 2, nsrc) operand; the elementwise form fuses.
         out = sum(
             ai[a, :, None, :] * coh[a, b][None, None, :] * aj[b, None, :, :]
             for a in range(2)
@@ -135,11 +135,10 @@ def apparent_coherency_rows_batched(
     """
     import jax.numpy as jnp
 
-    # K -> P pair expansion. A fancy-index take lowers to a mini-gather
-    # fusion on TPU that MATERIALIZES the expanded (P, ..., nsrc) arrays
-    # (~2x 7 MB/step on the eigen bench row, 20% of its device time); a
+    # K -> P pair expansion. A fancy-index take can lower to a gather
+    # fusion that MATERIALIZES the expanded (P, ..., nsrc) arrays; a
     # statically unrolled slice-stack lets XLA fuse the copies into the
-    # consumers instead (measured v5e: eigen row 4.64 -> 4.19 ms). P is
+    # consumers instead. P is
     # small by construction (K(K+1)/2 or K^2 basis pairs); keep the
     # gather form as a guard for degenerate large-P calls.
     if 0 < len(idx_i) <= 128:

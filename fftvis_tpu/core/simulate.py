@@ -2,7 +2,7 @@
 
 Parity target: /root/reference/src/fftvis/core/simulate.py (SimulationEngine
 ABC :22, default_accuracy_dict :16-19). The abstract surface is the same two
-methods; the chunking contract differs because on TPU "a chunk" is a
+methods; the chunking contract differs because here "a chunk" is a
 statically-shaped jitted block over (times x freqs), not a Ray task.
 """
 
@@ -74,12 +74,12 @@ class SimulationEngine(ABC):
         """Reference-API compatibility hook.
 
         The reference fans chunks out to Ray workers
-        (ref core/simulate.py:147-221); the TPU engine instead compiles one
+        (ref core/simulate.py:147-221); the JAX engine instead compiles one
         program per (time-block x freq) and shards it over the device mesh,
         so per-chunk evaluation is not part of the public contract here.
         """
         raise NotImplementedError(
-            "TPU engines evaluate jitted blocks, not host-side chunks."
+            "JAX engines evaluate jitted blocks, not host-side chunks."
         )
 
 
@@ -87,9 +87,10 @@ def resolve_precision(precision: int):
     """Map the API precision level to usable dtypes on the current backend.
 
     precision 2 = float64/complex128 when running on CPU with x64 enabled
-    (tests, oracle); on TPU (no fp64 hardware) it degrades to
-    float32/complex64 -- the type-3 transform keeps phases accurate by
-    centering coordinate ranges before any large product is formed.
+    (tests, oracle). On an accelerator the engine computes in
+    float32/complex64 either way (an fp64 engine on the GPU is not built
+    yet) -- the type-3 transform keeps phases accurate by centering
+    coordinate ranges before any large product is formed.
     """
     import jax
 
@@ -118,7 +119,7 @@ def _warn_precision_degraded(platform: str, x64: bool) -> None:
         return
     _precision_warned = True
     reason = (
-        "TPU hardware has no fp64"
+        "the engine's accelerator path computes in fp32"
         if platform != "cpu"
         else "jax x64 mode is disabled"
     )

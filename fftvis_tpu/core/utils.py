@@ -178,7 +178,7 @@ def get_required_chunks(
     """Number of source chunks needed to fit the working set in ``freemem`` bytes.
 
     Byte-level model mirroring the reference (ref core/utils.py:213-285). On
-    TPU this is used against the HBM budget instead of host RAM.
+    the GPU this is used against the device memory budget, not host RAM.
     """
     rsize = 4 * precision
     csize = 2 * rsize

@@ -1,89 +1,70 @@
-"""Analytic FLOP model + chip-peak tables for MFU reporting.
+"""Analytic FLOP model + the accelerator peak table for MFU reporting.
 
 The benchmark (bench.py) reports, for each scored row, the achieved
-FLOP/s and the fraction of the chip's matmul peak (MFU). The numerator
-is the ALGORITHM's arithmetic for the transform path the engine chose --
+FLOP/s and the fraction of the device's peak (MFU). The numerator is the
+ALGORITHM's arithmetic for the transform path the engine chose --
 closed-form from the plan (spread / FFT / interp / coherency / factor
 terms), not an HLO op count -- so padding waste and implementation
 detours count AGAINST utilization, the standard MFU convention.
 
-Accuracy: CALIBRATED against XLA's compiled cost analysis on v5e
-(examples/calibrate_flops.py; round-5 NOTES.md). Per-time-step the model
-lands within ~+-30% of the HLO op count on every headline row --
-tutorial 0.73x (the fused elementwise tail is slightly undercounted),
-eigen 1.27x and north-star 1.31x (expected: XLA books a complex dot at
-6 real flops per complex MAC, this model at the textbook 8). The
-elementwise per-source constants (rotation 40, beam eval 22, coherency
-80) contribute < 15% of every scored row, so MFU error bars are ~+-30%.
-The dominant terms are exact MAC counts (the type-1 exact factored
-DFT's ``8 C n nmy nmx``, the direct path's ``8 C n nbl``, the ES
-spread/FFT cells). Treat single-digit-percent MFU differences as noise;
-the number answers "is this row compute-bound and at roughly what
-fraction of the hardware ceiling."
+The dominant terms are exact MAC counts (the type-1 exact factored DFT's
+``8 C n nmy nmx``, the direct path's ``8 C n nbl``, the ES spread/FFT
+cells); the elementwise per-source constants (rotation 40, beam eval 22,
+coherency 80) are estimates. The model has not been calibrated against
+the GPU's compiled cost analysis (not measured).
 
-The denominator is the chip's dense-matmul peak for the precision the
-engine actually traces: f32 contractions on TPU run as bf16 multi-pass
-matmuls (HIGHEST = 6 passes, 'high' = 3), so the effective f32 peak is
-``bf16_peak / passes``.
+The denominator is the device's peak for the unit the engine's float32
+matmuls run on, which follows the traced matmul precision: full fp32
+('float32', the engine's default) or TF32 tensor cores.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-# Peak dense-matmul throughput per chip, bf16 with f32 accumulation
-# (public spec sheets; FLOP/s). Matched by substring against
-# jax.Device.device_kind (lowercased).
-_PEAK_BF16 = (
-    ("v6e", 918e12),
-    ("v6 lite", 918e12),
-    ("v5p", 459e12),
-    ("v5e", 197e12),
-    ("v5 lite", 197e12),
-    ("v5litepod", 197e12),
-    ("v5", 459e12),
-    ("v4", 275e12),
-    ("v3", 123e12),
-    ("v2", 45e12),
-)
+# Peak rates per device, keyed by jax.Device.device_kind. Source: NVIDIA
+# H100 data sheet, SXM part, dense rates (no sparsity), at its 700 W power
+# limit; a card set to a lower limit cannot hold these clocks.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "float32": 67e12,
+        "tf32": 495e12,
+        "bf16": 989e12,
+        "hbm_bytes_per_s": 3.35e12,
+    },
+}
 
-# default_matmul_precision -> number of bf16 passes emulating one f32
-# matmul on the MXU.
-_F32_PASSES = {
-    "float32": 6,
-    "highest": 6,
-    "high": 3,
-    "bfloat16_3x": 3,
-    "default": 1,
-    "fastest": 1,
-    "bfloat16": 1,
+# jax.default_matmul_precision value -> the peak its float32 matmuls run
+# at on the GPU. 'high' is the rate of what that setting lowers to on the
+# card (see PERF.md).
+_PRECISION_PEAK = {
+    "float32": "float32",
+    "highest": "float32",
+    "high": "tf32",
+    "tensorfloat32": "tf32",
+    "default": "tf32",
+    "bfloat16": "bf16",
 }
 
 
 def chip_peak_flops(matmul_precision: str = "float32"):
-    """(effective FLOP/s peak, human label) of the default device.
+    """(peak FLOP/s, human label) of the default device.
 
-    Returns ``(None, label)`` when the chip is unknown or is not a TPU --
-    callers should then omit the MFU percentage rather than fake one.
+    Returns ``(None, kind)`` on the CPU test backend, where there is no
+    device peak. A GPU missing from :data:`PEAKS` raises: a peak is never
+    guessed.
     """
-    try:
-        import jax
+    import jax
 
-        dev = jax.devices()[0]
-        kind = dev.device_kind
-        if dev.platform != "tpu":
-            return None, kind
-    except Exception:  # pragma: no cover - no runtime
-        return None, "unknown"
-    k = kind.lower()
-    for sub, bf16 in _PEAK_BF16:
-        if sub in k:
-            passes = _F32_PASSES.get(str(matmul_precision).lower(), 6)
-            return bf16 / passes, (
-                f"{kind}: {bf16 / 1e12:.0f} TFLOP/s bf16 / {passes} "
-                f"passes = {bf16 / passes / 1e12:.1f} TFLOP/s f32-effective"
-            )
-    return None, kind  # pragma: no cover - future chip
+    dev = jax.devices()[0]
+    kind = dev.device_kind
+    if dev.platform == "cpu":
+        return None, kind
+    if kind not in PEAKS:
+        raise KeyError(f"no peak table entry for device kind {kind!r}")
+    unit = _PRECISION_PEAK.get(str(matmul_precision).lower(), "float32")
+    peak = PEAKS[kind][unit]
+    return peak, f"{kind}: {peak / 1e12:.0f} TFLOP/s {unit}"
 
 
 def program_model_flops(cfg, ntimes: int | None = None) -> dict:
@@ -94,7 +75,7 @@ def program_model_flops(cfg, ntimes: int | None = None) -> dict:
     ``ntimes`` overrides the padded time count with the real one.
 
     Returns a dict of per-term FLOPs plus ``"total"``. Complex MAC = 8
-    real FLOPs, complex multiply = 6; sincos is costed at ~10 VPU FLOPs.
+    real FLOPs, complex multiply = 6; sincos is costed at ~10 FLOPs.
     """
     plan = cfg.plan
     nt = int(ntimes if ntimes is not None else cfg.nt_pad)
@@ -162,7 +143,7 @@ def program_model_flops(cfg, ntimes: int | None = None) -> dict:
             terms["t1x_gather"] = nt * nf * 2.0 * C * nbl
         else:  # ES spread + FFT + deconvolved gather
             w = eplan.kernel.w
-            # Dense MXU spread: (2C, n) x (n, cells) real MACs per axis
+            # Dense matmul spread: (2C, n) x (n, cells) real MACs per axis
             # formulation ~ 4 C n cells; kernel evaluation ~ 12 w n.
             terms["t1_spread"] = nt * nf * (4.0 * C * n * cells + 12.0 * w * n)
             terms["t1_fft"] = nt * nf * 5.0 * C * cells * np.log2(max(cells, 2))
@@ -191,7 +172,7 @@ def program_model_flops(cfg, ntimes: int | None = None) -> dict:
 
 def mfu_value(total_flops: float, seconds: float,
               matmul_precision: str = "float32") -> float | None:
-    """MFU as a percentage (None off-TPU / unknown chip). The single
+    """MFU as a percentage (None on the CPU test backend). The single
     source of the formula; ``mfu_string`` and bench row emission both
     delegate here so the printed and machine-readable numbers cannot
     drift apart."""
@@ -203,7 +184,7 @@ def mfu_value(total_flops: float, seconds: float,
 
 def mfu_string(total_flops: float, seconds: float,
                matmul_precision: str = "float32") -> str:
-    """Format 'X.X GFLOP, Y.Y TFLOP/s, mfu=Z.Z%' (mfu omitted off-TPU)."""
+    """Format 'X.X GFLOP, Y.Y TFLOP/s, mfu=Z.Z%' (mfu omitted on the CPU)."""
     rate = total_flops / max(seconds, 1e-12)
     s = f"{total_flops / 1e9:.1f} GFLOP at {rate / 1e12:.2f} TFLOP/s"
     mfu = mfu_value(total_flops, seconds, matmul_precision)

@@ -1,9 +1,9 @@
 """Memory reporting and progress logging.
 
 Parity target: /root/reference/src/fftvis/logutils.py (RSS/shared reporting,
-tracemalloc peaks, per-integration ETA logging), extended with device (HBM)
+tracemalloc peaks, per-integration ETA logging), extended with device
 memory statistics from the JAX runtime -- the quantity that actually matters
-on TPU.
+on the GPU.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ test_cpu_simulate.py:137-144, which uses matvis as oracle):
   1. Oracle implementations (NumPy float64) used by the in-repo direct
      simulation engine and the NUFFT unit tests.
   2. Fast exact small-problem paths on device: for small (n_src x n_targets)
-     the direct sum is a single dense complex matmul on the MXU, which beats
+     the direct sum is a single dense complex matmul, which beats
      spread+FFT+interp below a crossover planned by the engine's cost model.
 """
 
@@ -52,7 +52,7 @@ def direct_type3_jax(x, c, s, source_block: int = 8192):
 
     x: (d, n) device, c: (C, n) device, s: (d, m) host or device.
     Blocks over sources to bound the (block, m) phase matrix; each block is
-    an MXU-sized matmul. Exact to working precision (no eps error).
+    one dense matmul. Exact to working precision (no eps error).
     """
     import jax
     import jax.numpy as jnp

@@ -128,8 +128,7 @@ def fit_log_ft_cheb(
     The type-3 amplitude pre-correction divides per-source weights by
     psi_hat(x * ds) -- a smooth, even, positive function over the planned
     coordinate extent. Evaluating it with the 80-node quadrature costs 80
-    cos + 80 FMA per (source, axis) on device (measured 28 ms of a 184 ms
-    banded 24h type-3 program on v5e); a degree-~20 Chebyshev of
+    cos + 80 FMA per (source, axis) on device; a degree-~20 Chebyshev of
     log(psi_hat) in t = 2 (xi/xi_max)^2 - 1 is ~8x fewer flops and one
     exp. Fitting the LOG keeps the error RELATIVE across psi_hat's decay.
 
@@ -175,8 +174,8 @@ def es_kernel_ft_cheb(xi, coefs, xi_max: float, xp=np):
 def next_fast_size(n: int, prefer_pow2: bool = False, multiple_of: int = 8) -> int:
     """Smallest 5-smooth (2^a 3^b 5^c) multiple of ``multiple_of`` >= n.
 
-    XLA's FFT handles radix-2/3/5 well; the multiple-of-8 default matches
-    TPU sublane tiling (and the Pallas spreader's aligned-window scheme).
+    XLA's FFT handles radix-2/3/5 well; the multiple-of-8 default keeps
+    grid rows aligned for the tile/strip spreaders' 8-row windows.
     """
     if prefer_pow2:
         return max(1 << int(np.ceil(np.log2(max(n, 2)))), multiple_of)

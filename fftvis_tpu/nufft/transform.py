@@ -1,4 +1,4 @@
-"""TPU-native NUFFT: host planning + jittable device execution.
+"""JAX NUFFT: host planning + jittable device execution.
 
 Replaces finufft's type-3 and type-1 transforms (ref /root/reference/src/
 fftvis/cpu/nufft.py:11-175) with the decomposition
@@ -9,7 +9,7 @@ fftvis/cpu/nufft.py:11-175) with the decomposition
              grid deconvolution -> ES-interpolation at the (rescaled)
              nonuniform targets
 
-Key structural departures from the CPU library, driven by TPU/XLA:
+Key structural departures from the CPU library, driven by XLA:
 
   * Planning vs execution are fully split. A plan is computed on host from
     static problem bounds (target coordinates are host data: baselines x
@@ -55,7 +55,7 @@ def _check_int32_grid(nf) -> None:
     """Guard the flat int32 index space of a planned grid.
 
     Gather/scatter/tap indices are composed per axis as ``idx * nf_d + tap``
-    and shipped to the device as int32 (the TPU-native index dtype); a grid
+    and shipped to the device as int32 (the device index dtype); a grid
     with >= 2^31 cells would silently wrap and address wrong cells. No
     realistic plan gets near this (the fine-grid planner caps total cells
     far below), but a hand-built plan could.
@@ -130,7 +130,7 @@ class Type3Plan:
     # Host-fitted log-Chebyshev of psi_hat over the planned extent (per
     # dim; see kernels.fit_log_ft_cheb). f32 device pipelines evaluate the
     # amplitude pre-correction from this instead of the 80-node quadrature
-    # (~8x fewer VPU flops per source-axis); None entries fall back.
+    # (~8x fewer flops per source-axis); None entries fall back.
     ft_coefs: tuple = ()
     ft_xi_max: tuple = ()
 
@@ -201,11 +201,10 @@ def plan_type1(
 class Type3LowrankZPlan:
     """Plan for a 3D type-3 transform as K z-modes of a batched 2D type-3.
 
-    TPU-native replacement for finufft's ``nufft3d3`` (ref /root/reference/
-    src/fftvis/cpu/nufft.py:62-118): a full 3D fine grid is HBM-infeasible
-    for wide arrays (the sigma^2-oversampled grid reaches 10^10 cells), and
-    XLA scatter serializes, so instead the z phase factor is factored at
-    low rank:
+    Device replacement for finufft's ``nufft3d3`` (ref /root/reference/
+    src/fftvis/cpu/nufft.py:62-118): a full 3D fine grid does not fit in
+    device memory for wide arrays (the sigma^2-oversampled grid reaches
+    10^10 cells), so instead the z phase factor is factored at low rank:
 
         exp(i s_z x_z) = exp(i s_zc x_z)                 [device pre-phase]
                        * exp(i s'_z x_c)                 [folded into g]
@@ -214,8 +213,8 @@ class Type3LowrankZPlan:
     a Chebyshev (Jacobi-Anger) expansion whose length K ~ |s'|_max zh +
     O(log 1/eps) is small for near-coplanar arrays. Each z-mode multiplies
     the weights by T_k(t) (a cheap device recurrence), giving a 2D type-3
-    with C*K channels -- the extra channels ride the same MXU spread
-    matmuls, and memory stays 2D. Target-side coefficients g (m, K) are
+    with C*K channels -- the extra channels ride the same 2D spread, and
+    memory stays 2D. Target-side coefficients g (m, K) are
     host-precomputed by a Chebyshev-node DCT (exact to machine precision,
     no Bessel evaluations needed).
     """
@@ -450,8 +449,7 @@ def _precorr_axis(p, axis: int, x_axis, rdtype, xp):
     """psi_hat(x * ds_axis) for the type-3 amplitude pre-correction.
 
     f32 device pipelines use the plan's fitted log-Chebyshev (one Clenshaw
-    + exp; ~8x fewer VPU flops than the 80-node quadrature, which measured
-    28 ms of a 184 ms banded 24h type-3 program on v5e). f64 pipelines and
+    + exp; ~8x fewer flops than the 80-node quadrature). f64 pipelines and
     fit-less plans keep the quadrature (the fit tolerance is 3e-7 -- f32
     territory only).
     """
@@ -669,8 +667,8 @@ class Type2Executor:
     def scatter(self, f):
         """f: (C, m) mode coefficients. Returns the fine mode grid (C, *nf).
 
-        Uses XLA ``.at[].add`` scatter-add, which serializes per index on
-        TPU; fine for the typical small mode lists this transform serves.
+        Uses XLA ``.at[].add`` scatter-add; fine for the typical small mode
+        lists this transform serves.
         If very large mode lists (>~10^5) become a use case, reuse the
         type-1 spreaders' bincount/segment-sum or dense-matmul formulation
         instead.
@@ -681,10 +679,9 @@ class Type2Executor:
         p = self.plan
         rdtype = jnp.finfo(f.dtype).dtype
         vals = f * jnp.asarray(p.scatter_deconv, dtype=rdtype)[None, :]
-        # Scatter-add the real/imag planes separately: complex scatter is
-        # unimplemented on the TPU backend (surfaces as a runtime
-        # UNIMPLEMENTED at result fetch), and interpolation distributes
-        # over re/im anyway -- same split the beam tables use.
+        # Scatter-add the real/imag planes separately: the scatter stays
+        # real, and interpolation distributes over re/im anyway -- same
+        # split the beam tables use.
         idx = jnp.asarray(p.scatter_idx)
         zeros = jnp.zeros((f.shape[0], int(np.prod(p.nf))), dtype=rdtype)
         gr = zeros.at[:, idx].add(jnp.real(vals))
@@ -811,19 +808,18 @@ class Type1ExactExecutor:
 
     factors exactly as ``M = Ey^T diag(c) Ex`` with
     ``E[s, j] = e^{+i k_j x_s}`` -- two (n, nm) complex factor matrices
-    and one MXU matmul per channel. Compared with the dense ES spreader +
+    and one matmul per channel. Compared with the dense ES spreader +
     FFT + deconvolved gather (the reference's type-1 computes the full ES
     mode grid, ref cpu/nufft.py:120-175), this does strictly fewer MACs
     per source, needs no FFT or deconvolution, shrinks the scan-carry
     grid ~5-7x, and has NO eps truncation error at all.
 
-    TPU cost model: sin/cos are expensive multi-op VPU polynomials, so
-    building E entry-by-entry (n * nm sincos per axis) loses to the ES
-    spreader's cheap exp kernel. Instead each axis splits k = khi K + klo
+    Cost model: sin/cos are multi-op polynomials, so building E
+    entry-by-entry (n * nm sincos per axis) would cost more than the ES
+    spreader's exp kernel. Instead each axis splits k = khi K + klo
     with K ~ sqrt(nm): E = A[s, khi] * B[s, klo] needs only
     n (nhi + K) ~ 2 n sqrt(nm) sincos plus one fused complex multiply per
-    entry (~5x fewer transcendentals; measured 1.63 -> 0.72 ms per 49k x
-    (81 x 161) spread, at ES-spreader parity before the saved FFT). The
+    entry (~5x fewer transcendentals). The
     mode grid is padded to nhi * K so the outer product reshapes
     contiguously (padding rows are never gathered).
 
@@ -891,17 +887,16 @@ class Type1ExactExecutor:
         ex = jax_complex(exr, exi)
         C, n = c.shape
         nmy, nmx = int(self.plan.nf[0]), int(self.plan.nf[1])
-        # Two MXU formulations with IDENTICAL logical FLOPs
+        # Two matmul formulations with IDENTICAL logical FLOPs
         # (C * n * nmy * nmx complex MACs); the choice is tile geometry:
         #
         # - FACTORED (einsum): contract ex (n, nmx) against a broadcast
         #   rhs = c * ey, i.e. a (2C*nmy, n) x (n, nmx) matmul. M is huge
-        #   but N = nmx pads to the 128-lane tile: at the north-star
-        #   geometry (nmx = 21) the MXU runs ~16% filled -- measured 26 ms
-        #   of the 37 ms device program. XLA operand-fuses the rhs
-        #   broadcast, so nothing large materializes; this is the only
-        #   option when C is small (M = 2C in the outer form would starve
-        #   instead) or the mode grid is huge.
+        #   but N = nmx is small (21 at the north-star geometry), which
+        #   leaves a GEMM's output tiles mostly empty. XLA operand-fuses
+        #   the rhs broadcast, so nothing large materializes; this is the
+        #   only option when C is small (M = 2C in the outer form would
+        #   starve instead) or the mode grid is huge.
         # - OUTER-PRODUCT: materialize E[s, y*nmx+x] = ey * ex (complex,
         #   n x nmy*nmx) and run ONE (C, n) x (n, nmy*nmx) matmul: N fills
         #   (441 at the north star), M = 2C fills when C is large -- which
@@ -911,11 +906,9 @@ class Type1ExactExecutor:
         e_bytes = 2 * n * nmy * nmx * np.dtype(rdtype).itemsize
         use_outer = outer_env == "1" or (
             outer_env == "auto"
-            and 2 * C >= 128  # M must fill (measured: eigen C2=288 ok here)
-            # N must fill too: at nmy*nmx < 128 the factored einsum wins
-            # despite its nmx-starved tiles (measured on v5e: eigen row
-            # nm^2=49 is 1.2x FASTER factored; north star nm^2=441 is
-            # 1.3x faster outer at 2.8e-6 accuracy).
+            and 2 * C >= 128  # M must fill
+            # N must fill too: at nmy*nmx < 128 the factored einsum is
+            # kept (these thresholds have not been tuned on the GPU).
             and nmy * nmx >= 128
             and e_bytes <= 512 * 1024 * 1024
         )
@@ -923,13 +916,9 @@ class Type1ExactExecutor:
             import jax
 
             # Contract n against the rank-3 outer product directly: a
-            # flatten-to-(n, nmy*nmx) + matmul + reshape forces TWO
-            # physical relayouts of the (8,128)-tiled tensor when nmx is
-            # far from the 128-lane tile (the north-star trace showed
-            # ~1.25 ms per reshape, 3 reshapes of the 11.3 ms program);
-            # dot_general folds the flattening into the matmul's layout.
-            # Measured v5e at the north-star geometry (n=24576, nm=42,
-            # C=196): 3.38 -> 2.19 ms for the standalone contract.
+            # flatten-to-(n, nmy*nmx) + matmul + reshape can force
+            # physical relayouts of the tensor; dot_general folds the
+            # flattening into the matmul's layout.
             dn = (((1,), (0,)), ((), ()))
             cmm = os.environ.get("FFTVIS_EXACT_CMM", "split4")
             if cmm not in ("split4", "karatsuba"):
@@ -941,15 +930,9 @@ class Type1ExactExecutor:
                 )
             if cmm == "karatsuba":
                 # 3-real-matmul (Karatsuba/Gauss) split of the complex
-                # product: 25% fewer MXU passes in principle, but a
-                # MEASURED WASH on the north-star row (v5e: 7.29 vs
-                # 7.19 ms, accuracy 2.8e-6 vs 3.1e-6) -- the trace shows
-                # each contraction fusion runs at ~58% of the padded-MXU
-                # ceiling with the factor construction operand-fused
-                # alongside, and the third operand construction
-                # (er3+ei3) costs what the saved pass set buys back.
-                # Kept as an opt-in knob for geometries where the
-                # contraction dominates harder; ledger in NOTES.md.
+                # product: 25% fewer real matmuls, paid for by building a
+                # third operand (er3 + ei3). Opt-in; not measured on the
+                # GPU.
                 er3 = (
                     eyr[:, :, None] * exr[:, None, :]
                     - eyi[:, :, None] * exi[:, None, :]
@@ -969,7 +952,7 @@ class Type1ExactExecutor:
             g = jax.lax.dot_general(c, E3, dn)
             return g.astype(c.dtype)
         # Materialize the (C, n, nm_small) RHS on the SMALLER axis (less
-        # HBM traffic when XLA does not operand-fuse the broadcast).
+        # memory traffic when XLA does not operand-fuse the broadcast).
         if self.plan.nf[0] <= self.plan.nf[1]:
             rhs = c[:, :, None] * ey[None, :, :]  # (C, n, nmy)
             g = jnp.einsum("sx,csy->cyx", ex, rhs)
@@ -1033,7 +1016,7 @@ def jax_complex(re, im):
 
 
 def pick_strip_width(nfx: int, target: int = 128) -> int:
-    """Largest divisor of nfx that is <= ~1.5x the target lane width.
+    """Largest divisor of nfx that is <= ~1.5x the target strip width.
 
     The strip spreader needs strip | nfx so every window stays inside the
     padded grid; nfx is 5-smooth so good divisors always exist.
@@ -1048,13 +1031,12 @@ def pick_strip_width(nfx: int, target: int = 128) -> int:
 class _TiledInterp:
     """Host-planned, gather-free 2D tap interpolation.
 
-    The naive tap evaluation gathers G at (m, w, w) index pairs; TPU
-    gathers lower to per-element loops (~150 ns/element measured), making
-    that the hottest op of the whole type-3 pipeline. Everything about the
-    taps is static (targets are host data), so instead the targets are
-    binned into grid tiles AT PLAN TIME and each tile contracts a
-    contiguous dynamic-slice window of the (wrap-padded) grid with
-    host-built tap matrices -- MXU matmuls and VPU reductions only. The
+    The default tap evaluation gathers G at (m, w, w) index pairs. Since
+    everything about the taps is static (targets are host data), this
+    alternative (``FFTVIS_INTERP=tiled``) bins the targets into grid tiles
+    AT PLAN TIME and each tile contracts a contiguous dynamic-slice window
+    of the (wrap-padded) grid with host-built tap matrices -- matmuls and
+    elementwise reductions only, no gather. The
     final reordering back to target order is a static-index take, which
     XLA compiles to plain copies.
     """
@@ -1127,8 +1109,8 @@ class _TiledInterp:
         w, T, P, ay, ax = self.w, self.T, self.P, self.ay, self.ax
         rdtype = jnp.finfo(G.dtype).dtype
         C = G.shape[0]
-        # Real (re, im) planes: mixed complex x f32 einsums crash some
-        # experimental TPU runtimes, and real matmuls are faster anyway.
+        # Real (re, im) planes: the tap matrices are real, so the
+        # contractions stay real matmuls.
         Gr = jnp.concatenate([jnp.real(G), jnp.imag(G)], axis=0)  # (2C,.,.)
         # Wrap-pad so every tile window (through the last, possibly
         # grid-overhanging tile) is contiguous.
@@ -1158,7 +1140,7 @@ class _TiledInterp:
                 kx = kx + tvx[t, :, k, None] * (
                     iota_ax[None, :] == (offx[t, :, None] + k)
                 )
-            # (P, ay) @ (ay, 2C*ax) on the MXU, then a VPU tap reduction.
+            # (P, ay) @ (ay, 2C*ax) matmul, then an elementwise tap reduction.
             tmp = jax.lax.dot_general(
                 ky,
                 win.transpose(1, 0, 2).reshape(ay, 2 * C * ax),
@@ -1214,37 +1196,6 @@ class Type3Executor:
             ti = _TiledInterp(self.plan, sel)
             self._interp_cache[key] = ti
         return ti
-
-    def _window_interp(self, sel, G):
-        """Windowed interpolation: Pallas kernel when its gate passes,
-        else the XLA tiled scan (cached per target set and kind)."""
-        import jax
-
-        imode = os.environ.get("FFTVIS_INTERP", "auto")
-        if imode in ("pallas", "auto"):
-            from .pallas_interp import PallasInterp, pallas_interp_ok
-            from .pallas_spread import interpret_shardmap_blocked
-
-            c2 = 2 * int(G.shape[0])
-            rdt = np.finfo(np.result_type(G.dtype, np.float32)).dtype
-            m_here = self.plan.n_targets if sel is None else len(sel)
-            if (
-                (imode == "pallas" or jax.default_backend() == "tpu")
-                and pallas_interp_ok(
-                    self.plan.nf, self.plan.kernel.w, c2, m_here, rdt
-                )
-                and not interpret_shardmap_blocked(G)
-            ):
-                key = (
-                    None if sel is None else np.asarray(sel).tobytes(),
-                    "pallas",
-                )
-                ti = self._interp_cache.get(key)
-                if ti is None:
-                    ti = PallasInterp(self.plan, sel)
-                    self._interp_cache[key] = ti
-                return ti
-        return self._tiled_interp(sel)
 
     @_scoped("nufft_spread")
     def spread(self, x, c):
@@ -1341,21 +1292,11 @@ class Type3Executor:
     @_scoped("nufft_interp")
     def interpolate(self, G, sel: np.ndarray | None = None):
         """Evaluate targets (optionally a static subset ``sel``) from G."""
-        import jax
         import jax.numpy as jnp
 
         p = self.plan
-        m_here = p.n_targets if sel is None else len(sel)
-        imode = os.environ.get("FFTVIS_INTERP", "auto")
-        if p.d == 2 and (
-            imode in ("tiled", "pallas")
-            or (
-                imode == "auto"
-                and jax.default_backend() == "tpu"
-                and m_here * p.kernel.w**2 > 32768
-            )
-        ):
-            return self._window_interp(sel, G)(G)
+        if p.d == 2 and os.environ.get("FFTVIS_INTERP", "auto") == "tiled":
+            return self._tiled_interp(sel)(G)
         rdtype = jnp.finfo(G.dtype).dtype
         ti = [t if sel is None else t[sel] for t in p.tap_idx]
         tv = [
@@ -1400,7 +1341,7 @@ class Type3LowrankZExecutor:
     unchanged; grids simply carry C*K channels (``channel_multiplier``) and
     ``interpolate`` contracts the K z-modes with the host-planned target
     coefficients. ``.plan`` exposes the inner 2D plan so grid-size logic
-    (strip-spreader config, HBM estimates) sees the true 2D fine grid.
+    (strip-spreader config, memory estimates) sees the true 2D fine grid.
     """
 
     def __init__(self, zplan: Type3LowrankZPlan):
@@ -1412,7 +1353,6 @@ class Type3LowrankZExecutor:
         self._interp_cache: dict = {}
 
     _tiled_interp = Type3Executor._tiled_interp
-    _window_interp = Type3Executor._window_interp
 
     @property
     def channel_multiplier(self) -> int:
@@ -1547,20 +1487,13 @@ class Type3LowrankZExecutor:
     @_scoped("nufft_interp")
     def interpolate(self, G, sel: np.ndarray | None = None):
         """(C*K, nf0, nf1) -> (C, m[sel]): 2D taps then z-mode contraction."""
-        import jax
         import jax.numpy as jnp
 
         p2 = self.plan
         zp = self.zplan
         rdtype = jnp.finfo(G.dtype).dtype
-        m_here = p2.n_targets if sel is None else len(sel)
-        imode = os.environ.get("FFTVIS_INTERP", "auto")
-        if imode in ("tiled", "pallas") or (
-            imode == "auto"
-            and jax.default_backend() == "tpu"
-            and m_here * p2.kernel.w**2 > 32768
-        ):
-            o = self._window_interp(sel, G)(G)  # (C*K, m)
+        if os.environ.get("FFTVIS_INTERP", "auto") == "tiled":
+            o = self._tiled_interp(sel)(G)  # (C*K, m)
             o_re, o_im = jnp.real(o), jnp.imag(o)
         else:
             ti = [t if sel is None else t[sel] for t in p2.tap_idx]
@@ -1570,10 +1503,8 @@ class Type3LowrankZExecutor:
             ]
             ti = [jnp.asarray(t) for t in ti]
             sub = G[:, ti[0][:, :, None], ti[1][:, None, :]]
-            # Mixed complex x f32 einsums crash some experimental TPU
-            # runtimes (and complex constants cannot exist in the
-            # executable), so both the tap interpolation and the K-mode
-            # contraction run in real arithmetic on (re, im) planes.
+            # Both the tap interpolation and the K-mode contraction run
+            # in real arithmetic on (re, im) planes.
             o_re = jnp.einsum("cmab,ma,mb->cm", jnp.real(sub), tv[0], tv[1])
             o_im = jnp.einsum("cmab,ma,mb->cm", jnp.imag(sub), tv[0], tv[1])
 
@@ -1611,8 +1542,8 @@ def _forward_modes(g, nf):
     return jnp.fft.ifftn(g, axes=axes) * float(np.prod(nf))
 
 
-# Above this many grid cells the dense matmul spread (cost n * prod(nf))
-# yields to the strip-binned spreader when a capacity bound is available.
+# Grid-size class of the dense forms (cost n * prod(nf)): the gridded path
+# takes the exact separable DFT up to this many mode-grid cells.
 DENSE_GRID_LIMIT = 512 * 512
 
 
@@ -1622,118 +1553,34 @@ def _spread_auto(
 ):
     """Spreading dispatch, trace-time static.
 
-    XLA's scatter-add lowers to a sequential per-index loop on TPU, which is
-    unusably slow for NUFFT spreading. On accelerators the 2D spread instead
-    runs as dense kernel-factor MATMULS on the MXU
-    (:func:`_spread_dense_matmul`) -- the ES kernel is zero outside its
-    support, so the dense outer-product formulation is exact, handles both
-    periodic wraps through periodic distances, and rides the systolic array.
-    Large grids route through the tile-binned Pallas band-accumulator
-    kernel (nufft/pallas_spread.py; measured 10x the XLA tile scan on the
-    spread stage on v5e) when its geometry gate passes, else the (y, x)
-    tile-binned XLA scan with the planner's per-tile capacity bound (the
-    strip form is its dense-in-y predecessor, kept for comparison). CPU
-    keeps the cheap scatter. Override with
-    FFTVIS_SPREADER={auto,pallas,scatter,dense,strip,tiled}.
-
-    (A per-SOURCE Pallas kernel was evaluated in round 2 and retired: its
-    rank-1 VPU patch updates cost n * grid-area work. The round-3 Pallas
-    kernel is the bin-sorted tile-matmul form itself -- MXU patches from
-    contiguous chunk slices, band accumulation in VMEM -- which is why it
-    beats the lax.scan lowering instead of losing to it.)
+    ``FFTVIS_SPREADER=auto`` (the default) is XLA scatter-add on every
+    backend: on an H100 at the forced-type-3 geometry it beat the dense
+    matmul form 4-6x end to end, and a bin-sorted Pallas tile kernel won
+    only at 4 channels (PERF.md). The other values force one lowering:
+    ``scatter``, ``dense`` (two dense matmuls over the whole grid),
+    ``ztaps`` (the 3D z-plane scan), and the capacity-planned XLA scans
+    ``strip`` and ``tiled``, which need the planner's configuration. A
+    forced lowering that cannot run this problem falls back to scatter.
     """
-    import os
-
-    import jax
-
     mode = os.environ.get("FFTVIS_SPREADER", "auto")
     d = len(u_list)
     # The engine planner supplies a 4-tuple (ty, sx, cap, classes); accept
     # the documented legacy 3-tuple (FFTVIS_TILE workflows) as classes=None.
     if tile_config is not None and len(tile_config) == 3:
         tile_config = (*tile_config, None)
-    # Capacity 0 marks an "unplanned" config (the engine skipped capacity
-    # planning because the Pallas gate provably passes); the XLA tile scan
-    # must never run with it -- only the (ty, sx) choice is meaningful.
-    tiled_usable = tile_config is not None and int(tile_config[2]) > 0
-    if mode == "pallas":
-        # Fused band-accumulator kernel (see nufft/pallas_spread.py). When
-        # the geometry/dtype gate fails, fall back to the standard "auto"
-        # lowering choice -- NEVER to the scatter path, whose sequential
-        # per-index lowering is the very pathology the binned spreaders
-        # exist to avoid (a fall-through here measured 74x slower than the
-        # tiled spreader on the forced-type-3 bench row).
-        if d == 2:
-            from .pallas_spread import (
-                interpret_shardmap_blocked,
-                pallas_spread_ok,
-                pallas_tile_shape,
-                spread_pallas_tiled,
-            )
-
-            C, n = weights.shape
-            ty, sx = pallas_tile_shape(nf, w, 2 * C, tile_config)
-            rdt = np.finfo(np.result_type(weights.dtype, np.float32)).dtype
-            if pallas_spread_ok(
-                nf, w, ty, sx, 2 * C, n, rdt
-            ) and not interpret_shardmap_blocked(*u_list, weights):
-                return spread_pallas_tiled(
-                    u_list, weights, nf, w, beta, ty, sx,
-                    u_lo_list=u_lo_list,
-                )
-        mode = "auto"
     # Every spreader consumes optional DS low parts through the shared
     # cell/frac decomposition (:func:`_split_cell_frac`), so the engine's
-    # ds_coords accuracy win carries to giant tiled/strip type-3 grids too.
+    # ds_coords accuracy win carries to every lowering.
     if mode == "strip" and d == 2 and strip_config is not None:
         return _spread_strip_matmul(u_list, weights, nf, w, beta,
                                     *strip_config, u_lo_list=u_lo_list)
-    if mode == "tiled" and d == 2 and tiled_usable:
+    if mode == "tiled" and d == 2 and tile_config is not None:
         return _spread_tiled_matmul(u_list, weights, nf, w, beta,
                                     *tile_config, u_lo_list=u_lo_list)
     if mode == "dense" and d == 2:
         return _spread_dense_matmul(u_list, weights, nf, w, beta,
                                     u_lo_list=u_lo_list)
     if mode == "ztaps" and d == 3:
-        return _spread_3d_ztaps(u_list, weights, nf, w, beta,
-                                u_lo_list=u_lo_list)
-    if mode == "auto" and d == 2 and jax.default_backend() == "tpu":
-        if int(np.prod(nf)) > DENSE_GRID_LIMIT:
-            # Large grids: the Pallas band-accumulator kernel when its
-            # geometry/VMEM gate passes (measured 10x the tiled scan on the
-            # spread stage, 1.35x the full forced-type-3 engine row on v5e,
-            # bit-matched), else the capacity-planned XLA tile/strip scans.
-            from .pallas_spread import (
-                interpret_shardmap_blocked,
-                pallas_spread_ok,
-                pallas_tile_shape,
-                spread_pallas_tiled,
-            )
-
-            C, n = weights.shape
-            pty, psx = pallas_tile_shape(nf, w, 2 * C, tile_config)
-            rdt = np.finfo(np.result_type(weights.dtype, np.float32)).dtype
-            if pallas_spread_ok(
-                nf, w, pty, psx, 2 * C, n, rdt
-            ) and not interpret_shardmap_blocked(*u_list, weights):
-                return spread_pallas_tiled(
-                    u_list, weights, nf, w, beta, pty, psx,
-                    u_lo_list=u_lo_list,
-                )
-            if tiled_usable:
-                return _spread_tiled_matmul(u_list, weights, nf, w, beta,
-                                            *tile_config,
-                                            u_lo_list=u_lo_list)
-            if strip_config is not None:
-                return _spread_strip_matmul(u_list, weights, nf, w, beta,
-                                            *strip_config,
-                                            u_lo_list=u_lo_list)
-        return _spread_dense_matmul(u_list, weights, nf, w, beta,
-                                    u_lo_list=u_lo_list)
-    if mode == "auto" and d == 3 and jax.default_backend() == "tpu":
-        # XLA scatter serializes on TPU; the z-tap scan is exact and dense.
-        # (The engine routes 3D through the lowrank-z 2D factorization, so
-        # this branch is only reached via the public make_type3_fn API.)
         return _spread_3d_ztaps(u_list, weights, nf, w, beta,
                                 u_lo_list=u_lo_list)
     return _spread_scatter(u_list, weights, nf, w, beta, u_lo_list=u_lo_list)
@@ -1749,10 +1596,10 @@ def _spread_strip_matmul(
     capacity: int,
     u_lo_list=None,
 ):
-    """2D ES spreading via x-strip binning + per-strip MXU matmuls.
+    """2D ES spreading via x-strip binning + per-strip matmuls.
 
     The dense-matmul spreader costs n * nfy * nfx per channel -- fine for
-    VMEM-scale grids, quadratic pain for large type-3 grids. This variant
+    small grids, quadratic pain for large type-3 grids. This variant
     sorts sources into ``nfx / strip`` x-strips (device argsort), then runs
     one (nfy x P) @ (P x 2C*(strip+w+2)) matmul per strip into a dynamic
     window of the grid, cutting the x-extent of every product from nfx to
@@ -1870,8 +1717,8 @@ def _spread_3d_ztaps(u_list, weights, nf, w: int, beta: float,
     full 2D tap patch weighted by psi(periodic distance of p to u_z) -- zero
     outside the kernel support, so this is exact. Near-coplanar arrays have
     a small z grid (the type-3 planner sizes nf_z from the tiny w-extent),
-    making the nf_z x (2D spread) cost acceptable where XLA scatter would
-    serialize. Used on TPU for d == 3; CPU keeps the scatter.
+    making the nf_z x (2D spread) cost acceptable. Selected by
+    FFTVIS_SPREADER=ztaps; the default for d == 3 is the scatter.
     """
     import jax
     import jax.numpy as jnp
@@ -1902,7 +1749,7 @@ def pick_tile_shape(nf, w: int, c2: int):
     """(TY, SX) tile shape for the 2D tiled spreader.
 
     The per-tile matmul is (TYW, P) @ (P, c2 * XW) with TYW = TY + w + 2
-    rounded to the 8-sublane grain and XW = SX + w + 2; smaller tiles track
+    rounded up to a multiple of 8 and XW = SX + w + 2; smaller tiles track
     clustered source densities better (lower per-tile capacity slack) at
     the price of a larger halo fraction. Override with FFTVIS_TILE=ty,sx
     for experiments.
@@ -1914,11 +1761,9 @@ def pick_tile_shape(nf, w: int, c2: int):
         ty, sx = (int(v) for v in env.split(","))
         return ty, sx
     nfy, nfx = int(nf[0]), int(nf[1])
-    # Hardware-tuned on the hex-169 / 49k-source workload WITH the
-    # balanced-occupancy class schedule (v5e): (64, 118) = 11.3 ms vs
-    # 18.9 ms at the old single-class optimum (24, 238). Taller tiles
-    # halve the per-step dispatch count; the class schedule absorbs the
-    # occupancy-slack penalty that used to favor small tiles.
+    # Taller tiles halve the per-step dispatch count; the balanced-
+    # occupancy class schedule absorbs the occupancy-slack penalty that
+    # would favor small tiles. Not tuned on the GPU.
     ty = 64 if nfy >= 128 else max(8, nfy)
     sx = max(16, min(128 - w - 2, nfx))
     return ty, sx
@@ -1936,13 +1781,13 @@ def _spread_tiled_matmul(
     classes=None,
     u_lo_list=None,
 ):
-    """2D ES spreading via (y, x) tile binning + per-tile MXU matmuls.
+    """2D ES spreading via (y, x) tile binning + per-tile matmuls.
 
     Generalizes :func:`_spread_strip_matmul` (x strips, dense in y) by also
     binning the y axis: each source is assigned to one (TY, SX) tile of the
     grid by its coordinates, and the tile's (TYW, P) @ (P, c2*XW) matmul
     covers every assigned source's full kernel patch (TYW = TY + w + 2
-    rounded to the sublane grain, XW = SX + w + 2). Work per source drops
+    rounded up to a multiple of 8, XW = SX + w + 2). Work per source drops
     from nfy * XW (strip) to TYW * XW -- the decisive factor for large
     type-3 grids, where the strip form is ~nfy/TYW = 10-40x more FLOPs.
 
@@ -1977,7 +1822,7 @@ def _spread_tiled_matmul(
     ntx = -(-nfx // sx)
     ntiles = nty * ntx
     P = int(capacity)
-    tyw = -(-(ty + 2 * m) // 8) * 8  # sublane-grain row window
+    tyw = -(-(ty + 2 * m) // 8) * 8  # row window, a multiple of 8
     xw = sx + 2 * m
 
     # Assembled frame: all tiles plus an m halo on every side. Row r of the
@@ -1996,11 +1841,10 @@ def _spread_tiled_matmul(
     tix = jnp.clip((ux // sx).astype(jnp.int32), 0, ntx - 1)
     tid = tiy * ntx + tix
 
-    # Bin-sort with the payload PACKED into wide rows. TPU gathers lower to
-    # per-element loops, so per-tile index gathers (uy[idx], vals[:, idx])
-    # dominate everything else by 10x+ (measured); instead sort once, apply
-    # the permutation as ONE row-gather of a (n, D) matrix (wide rows
-    # amortize the gather), and slice each tile's sources CONTIGUOUSLY.
+    # Bin-sort with the payload PACKED into wide rows: instead of per-tile
+    # index gathers (uy[idx], vals[:, idx]), sort once, apply the
+    # permutation as ONE row-gather of a (n, D) matrix (wide rows amortize
+    # the gather), and slice each tile's sources CONTIGUOUSLY.
     vals = jnp.concatenate(
         [jnp.real(weights), jnp.imag(weights)], axis=0
     ).astype(rdtype)  # (c2, n)
@@ -2096,7 +1940,7 @@ def _spread_tiled_matmul(
             rhs = (kx[:, None, :] * v_t.T[:, :, None]).reshape(Pc, c2 * xw)
             patch = (ky @ rhs).reshape(tyw, c2, xw)
             # Rows beyond the kernel-support window are identically zero
-            # (tyw is only sublane-rounded); drop them for the assembly.
+            # (tyw is rounded up to 8); drop them for the assembly.
             return None, patch[:hw]
 
         return tile_body
@@ -2167,7 +2011,7 @@ def _fold_frame(grid, nfy: int, nfx: int, m: int, C: int, out_dtype):
     ``grid`` is the assembled overlap-add frame: real/imag channel planes of
     the fine grid with an ``m``-column/row pad on the low sides and whatever
     the tile lattice left on the high sides (< one period by the callers'
-    guards). Shared by the XLA tiled spreader and the Pallas band spreader.
+    guards). Shared by the XLA tiled and strip spreaders.
     """
     import jax.numpy as jnp  # noqa: F401  (callers pass jnp arrays)
 
@@ -2211,15 +2055,16 @@ def _split_cell_frac(u, u_lo, xp):
 
 def _spread_dense_matmul(u_list, weights, nf, w: int, beta: float,
                          u_lo_list=None):
-    """2D ES spreading as two dense matmuls (MXU path).
+    """2D ES spreading as two dense matmuls.
 
     grid[c, y, x] = sum_j psi_per(y - uy_j) * psi_per(x - ux_j) * w[c, j]
 
     computed as  Ky(nfy, n) @ RHS(n, 2C*nfx)  in f32 re/im planes, where
     psi_per uses the periodic grid distance (both wraps handled for free)
-    and RHS carries kx * weight. FLOPs are n * nfy * 2C * nfx * 2 -- for
-    VMEM/HBM-comfortable grid sizes this is far below the cost of any
-    scatter lowering, and it is exact (psi vanishes outside its support).
+    and RHS carries kx * weight. FLOPs are n * nfy * 2C * nfx * 2, and it
+    is exact (psi vanishes outside its support). On an H100 at the
+    forced-type-3 grid (1200 x 576) it ran 4-6x slower end to end than the
+    scatter default (PERF.md); selected by FFTVIS_SPREADER=dense.
 
     ``u_lo_list`` optionally supplies double-single low parts of the
     coordinates; distances are then formed cell/frac-exactly so the
@@ -2251,7 +2096,7 @@ def _spread_dense_matmul(u_list, weights, nf, w: int, beta: float,
     vals = jnp.concatenate([jnp.real(weights), jnp.imag(weights)], axis=0)
     # RHS: (n, 2C, nfx) -> (n, 2C*nfx)
     rhs = (kx[:, None, :] * vals.T[:, :, None]).reshape(n, 2 * C * nfx)
-    flat = ky @ rhs  # (nfy, 2C*nfx) on the MXU
+    flat = ky @ rhs  # (nfy, 2C*nfx)
     grid = flat.reshape(nfy, 2 * C, nfx).transpose(1, 0, 2)
     return (grid[:C] + 1j * grid[C:]).astype(weights.dtype)
 

@@ -1,6 +1,6 @@
 """Device-mesh parallelism for visibility simulation.
 
-TPU-native replacement for the reference's Ray process fan-out + plasma
+SPMD replacement for the reference's Ray process fan-out + plasma
 shared-memory object store (ref /root/reference/src/fftvis/cpu/
 cpu_simulate.py:714-837): instead of serializing inputs into a host object
 store and stitching per-process results, the simulation is ONE SPMD program
@@ -10,11 +10,11 @@ over a jax.sharding.Mesh --
     integration times; the analogue of the reference's freq x time
     ``get_task_chunks`` fan-out, ref core/utils.py:122-187);
   - the ``source`` axis shards giant skies; each shard spreads its sources
-    onto a local NUFFT fine grid and a single ``psum`` over ICI reduces the
+    onto a local NUFFT fine grid and a single ``psum`` (NVLink on one host) reduces the
     grids before the FFT (SURVEY section 5's natural all-reduce point).
 
-Multi-host pods: call :func:`init_distributed` before building the mesh;
-device order from ``jax.devices()`` then spans hosts over DCN, the engine
+Multi-host clusters: call :func:`init_distributed` before building the
+mesh; device order from ``jax.devices()`` then spans hosts, the engine
 ships inputs as global arrays, and the output is allgathered on every
 host (tested with a two-process forced-CPU-device rig in
 tests/test_multihost.py).
@@ -30,19 +30,19 @@ def init_distributed(
     num_processes: int | None = None,
     process_id: int | None = None,
 ):
-    """Initialize the multi-host (DCN) runtime before building a mesh.
+    """Initialize the multi-process runtime before building a mesh.
 
-    TPU-native replacement for the reference's Ray cluster bring-up (ref
+    Replacement for the reference's Ray cluster bring-up (ref
     cpu_simulate.py:714-769): after this, ``jax.devices()`` spans every
-    process's chips (TPU pods over DCN; forced-CPU-device test rigs over
+    process's devices (GPUs across hosts; forced-CPU-device test rigs over
     TCP), :func:`make_mesh` lays mesh axes across them, and
     ``TPUSimulationEngine`` ships inputs as global arrays and allgathers
     the output on every host (engine ``multiproc`` path).
 
-    On Cloud TPU pods all three arguments are auto-detected (pass
-    nothing); on manual clusters pass ``coordinator_address``
-    ("host:port" of process 0), ``num_processes``, and this process's
-    ``process_id``. Idempotent: re-initialization is a no-op.
+    Pass ``coordinator_address`` ("host:port" of process 0),
+    ``num_processes``, and this process's ``process_id`` unless the
+    cluster environment lets JAX detect them. Idempotent:
+    re-initialization is a no-op.
     """
     import jax
 

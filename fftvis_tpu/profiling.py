@@ -1,6 +1,6 @@
 """Profiling hooks: XLA traces and device memory profiles.
 
-TPU-native replacement for the reference's cProfile/line_profiler/memray
+Device replacement for the reference's cProfile/line_profiler/memray
 tracing stack (ref cli.py:109-159, cpu_simulate.py:900-901): wall-clock
 profiling of a jitted program means capturing an XLA trace, and memory
 tracing means device memory profiles -- both via jax.profiler.

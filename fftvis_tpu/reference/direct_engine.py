@@ -14,7 +14,7 @@ isign=+1 (finufft default), the vector-component flip for polarized sky
 models (ref cpu_simulate.py:145-156), and the final (f1, f2) transpose
 (ref cpu_simulate.py:300).
 
-It shares ONLY the coordinate and beam modules with the TPU engine; the
+It shares ONLY the coordinate and beam modules with the JAX engine; the
 transform math is written independently so pipeline bugs cannot cancel.
 """
 

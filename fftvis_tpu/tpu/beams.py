@@ -1,4 +1,4 @@
-"""TPU beam evaluator: the public BeamEvaluator implementation.
+"""JAX beam evaluator: the public BeamEvaluator implementation.
 
 API parity with the reference's CPUBeamEvaluator (ref cpu/beams.py:9-127),
 including the matvis-style ``interp`` bridge inherited from the ABC. The

@@ -1,16 +1,18 @@
-"""Double-single (two-float) arithmetic for fp64-class accuracy on TPU.
+"""Double-single (two-float) arithmetic for fp64-class accuracy in fp32.
 
-TPU hardware has no float64; the reference's ``precision=2`` path
-(fp64 + eps=1e-13 through finufft, ref core/simulate.py accuracy dict)
-therefore degrades to fp32 on this backend. This module provides the
+The engine's accelerator path computes in float32; the reference's
+``precision=2`` path (fp64 + eps=1e-13 through finufft, ref
+core/simulate.py accuracy dict) therefore degrades to fp32 there. This
+module provides the
 compensated-arithmetic building blocks that recover ~1e-7-1e-9 relative
 accuracy for the exact (direct-DFT) path: every value is an unevaluated
 sum ``hi + lo`` of two float32s (~49-bit effective mantissa).
 
-The error-free transformations (Knuth two-sum, Dekker two-product) are
-bit-exact on the TPU VPU (verified on hardware: residuals are 0 against
-float64), and XLA's default compilation preserves IEEE per-op semantics,
-so the classical double-double algorithms transfer directly.
+The error-free transformations (Knuth two-sum, Dekker two-product) stay
+bit-exact when jitted for an H100 (residuals are 0 against float64; the
+``gpu``-marked tests of tests/test_ds.py check it on the card, where FMA
+contraction would break them), so the classical double-double algorithms
+transfer directly.
 
 All functions are elementwise over arbitrary-shape jnp arrays and are
 safe under jit/vmap/scan. Host-side ``split64`` produces the (hi, lo)

@@ -173,7 +173,7 @@ def ds_coords_spread(
             u_ds.append(_dsm.ds_mod_n(yh, yl, nf_i))
         # Barrier: stops XLA:CPU fusion from duplicating the DS chain's
         # subexpressions with one-ulp differences (breaking the
-        # error-free transforms; NOTES.md) and from the pathological
+        # error-free transforms) and from the pathological
         # scatter-producer fusion above.
         u_ds = jax.lax.optimization_barrier(u_ds)
         return carry + plan.executor.spread_ds(u_ds, rows)

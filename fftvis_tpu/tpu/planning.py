@@ -1,4 +1,4 @@
-"""Host-side transform planning for the TPU engine.
+"""Host-side transform planning for the simulation engine.
 
 Everything here runs once per configuration on the host: choosing the
 transform path (type-1 / type-3 / direct) from a FLOP model, building the
@@ -108,89 +108,80 @@ def sim_plan_fingerprint(plan: _SimPlan) -> tuple:
 
 
 _MEMORY_LIMIT_CACHE: list = []
+# Working-set budget on the CPU test backend (bytes).
+HOST_MEMORY_BUDGET = 16 * 1024**3
 
 
 def device_memory_limit() -> int:
-    """Total memory of the default device in bytes (cached).
+    """Memory budget of the default device in bytes (cached).
 
     Working-set budgets (direct-path scan footprint, freq-vmap threshold)
-    scale with the actual chip (v5e 16 GB vs v5p 96 GB) instead of a
-    hardcoded constant (round-1 advisor finding). Falls back to a 16 GiB
-    HBM assumption when the runtime exposes no stats (e.g. CPU tests,
-    where the budget only shapes blocking, not correctness).
+    scale with the device. On the GPU this is the allocator's
+    ``bytes_limit`` (the share of the card JAX reserved); a GPU that does
+    not report it is an error, not a guess. The CPU test backend reports
+    no limit, so it gets a fixed host budget, which only shapes blocking.
     """
     if _MEMORY_LIMIT_CACHE:
         return _MEMORY_LIMIT_CACHE[0]
-    limit = 16 * 1024**3
-    try:
-        import jax
+    import jax
 
-        stats = jax.devices()[0].memory_stats()
-        if stats and stats.get("bytes_limit"):
-            limit = int(stats["bytes_limit"])
-    except Exception:  # pragma: no cover - exotic runtimes
-        pass
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
+        limit = HOST_MEMORY_BUDGET
+    else:
+        stats = dev.memory_stats() or {}
+        if not stats.get("bytes_limit"):
+            raise RuntimeError(
+                f"device {dev.device_kind!r} reports no memory bytes_limit"
+            )
+        limit = int(stats["bytes_limit"])
     _MEMORY_LIMIT_CACHE.append(limit)
     return limit
 
 
-def type3_compact_ok(plan, c2: int, rdtype, n_max: int) -> bool:
-    """Whether type-3 spread cost is occupancy-proportional at
-    ``n_max``-source calls, making banding-by-compaction a pure win.
+def ds_coords_default() -> bool:
+    """Whether the fp32 NUFFT coordinates default to double-single
+    arithmetic: on the GPU, off on the CPU test backend.
 
-    True for the dense 2D spreader (small grids), the 3D z-plane dense
-    scan, the Pallas band-accumulator kernel (when its VMEM/geometry
-    gate passes at ``n_max`` sources), and the non-TPU XLA fallbacks
-    (dense/scatter -- test backends). False for the capacity-planned
-    strip/tiled XLA scans: their per-call cost is the static capacity,
-    and their host-side occupancy bounds assume calls of one source
-    block (a compacted mega-block could exceed the per-tile capacity
-    clamp and silently drop sources).
+    On the CPU, XLA's fusion duplicates the error-free transforms'
+    subexpressions with one-ulp differences, leaving f32 accuracy with
+    extra rounding steps (``FFTVIS_DS_COORDS=1`` forces them on there for
+    mechanics tests).
     """
-    import jax as _jax
+    import jax
 
-    from ..nufft.transform import DENSE_GRID_LIMIT
+    return jax.default_backend() == "gpu"
 
+
+def type3_compact_ok(plan) -> bool:
+    """Whether type-3 spread cost is occupancy-proportional, making
+    banding-by-compaction a pure win.
+
+    True for every spreader but the capacity-planned strip/tiled XLA
+    scans: their per-call cost is the static capacity, and their host-side
+    occupancy bounds assume calls of one source block (a compacted
+    mega-block could exceed the per-tile capacity clamp and silently drop
+    sources).
+    """
     ex = plan.executor
-    eplan = getattr(ex, "plan", None)
-    if ex is None or eplan is None:
+    if ex is None or getattr(ex, "plan", None) is None:
         return False
-    mode_env = os.environ.get("FFTVIS_SPREADER", "auto")
-    if mode_env in ("strip", "tiled"):
-        return False
-    if _jax.default_backend() != "tpu":
-        return True
-    if eplan.d != 2:
-        return True  # 3D z-plane dense scan: cost scales with n
-    if int(np.prod(eplan.nf)) <= DENSE_GRID_LIMIT:
-        return True  # dense matmul spreader
-    from ..nufft.pallas_spread import pallas_spread_ok, pallas_tile_shape
-
-    pty, psx = pallas_tile_shape(eplan.nf, eplan.kernel.w, c2)
-    return pallas_spread_ok(
-        eplan.nf, eplan.kernel.w, pty, psx, c2, n_max, np.dtype(rdtype)
-    )
+    return os.environ.get("FFTVIS_SPREADER", "auto") not in ("strip", "tiled")
 
 
-def configure_strip_spreader(plan, rot, freqs, c2: int = 2,
-                             rdtype=np.float32) -> None:
-    """Set binned-spreader capacities on a type-3 executor (large grids).
+def configure_strip_spreader(plan, rot, freqs) -> None:
+    """Set binned-spreader capacities on a type-3 executor.
 
-    Default: the (y, x) tiled spreader; FFTVIS_SPREADER=strip selects
-    the legacy dense-in-y strip form. Capacities are rigorous bounds:
+    Only for the capacity-planned XLA scans, which
+    FFTVIS_SPREADER={tiled,strip} select: the (y, x) tiled spreader or
+    the dense-in-y strip form. Capacities are rigorous bounds:
     the maximum number of sources in ANY window of one tile/strip's
     physical size (at the widest, lowest-frequency scaling), computed
     per time from the same rotation chain the device uses --
     alignment-independent, so fp32 jitter at tile edges cannot exceed
     them.
     """
-    import jax as _jax
-
-    from ..nufft.transform import (
-        DENSE_GRID_LIMIT,
-        pick_strip_width,
-        pick_tile_shape,
-    )
+    from ..nufft.transform import pick_strip_width, pick_tile_shape
 
     if plan.mode != "type3" or plan.executor is None:
         return
@@ -206,43 +197,10 @@ def configure_strip_spreader(plan, rot, freqs, c2: int = 2,
         plan.executor.strip_config = None
         return
     mode_env = os.environ.get("FFTVIS_SPREADER", "auto")
-    wanted = mode_env in ("strip", "tiled") or (
-        _jax.default_backend() == "tpu"
-        and int(np.prod(eplan.nf)) > DENSE_GRID_LIMIT
-    )
-    if not wanted:
+    if mode_env not in ("strip", "tiled"):
         plan.executor.strip_config = None
         plan.executor.tile_config = None
         return
-    if mode_env in ("auto", "pallas"):
-        # When the Pallas band kernel's gate provably passes for every
-        # spread call (same static inputs the trace-time gate sees),
-        # the XLA tile scan is unreachable: skip the per-(time, freq)
-        # capacity histogram and class planning, the dominant host
-        # cost of type-3 planning on long observations. tile_config
-        # keeps the (ty, sx) choice with capacity 0 = "unplanned";
-        # _spread_auto treats that as no-config on its fallback paths.
-        from ..nufft.pallas_spread import (
-            pallas_spread_ok,
-            pallas_tile_shape,
-        )
-
-        # Compacted banding feeds the spread a (K*block) axis, not one
-        # block: gate VMEM at the plan's recorded worst call size.
-        _n_gate = int(getattr(plan, "spread_n", 0) or plan.block)
-        pty, psx = pallas_tile_shape(eplan.nf, eplan.kernel.w, c2)
-        if pallas_spread_ok(
-            eplan.nf, eplan.kernel.w, pty, psx, c2,
-            _n_gate, np.dtype(rdtype),
-        ):
-            plan.executor.strip_config = None
-            plan.executor.tile_config = (pty, psx, 0, None)
-            logger.info(
-                "type-3 spread: Pallas band kernel gate passes "
-                "(tile=(%d, %d), c2=%d, block=%d); capacity planning "
-                "skipped", pty, psx, c2, _n_gate,
-            )
-            return
 
     scale_min = TWO_PI * float(np.min(freqs)) / speed_of_light
     # Padding sources land at one fixed location; account for them.
@@ -446,9 +404,8 @@ def plan_transform(
     """Choose the transform path and build its static plan (host).
 
     sigma (``upsample_factor``) stays at the requested value -- DO NOT
-    auto-lower it to 1.25 on f32 pipelines. Measured (round 4): the
-    device win is real (type-3 forced row 6.4 -> 4.3 ms; gridded ES
-    3.9 -> 2.0 ms -- the fine grid shrinks (2/1.25)^2 = 2.6x), but f32
+    auto-lower it to 1.25 on f32 pipelines. The fine grid shrinks
+    (2/1.25)^2 = 2.6x (the GPU speed-up is not measured), but f32
     accuracy is config-dependently destroyed: the gridded row degrades
     5.8e-6 -> 2.2e-5 (per-mode deconvolution at the |k| = nf/(2 sigma)
     band edge) and a hex-3 24h type-3 config degrades 2.3e-6 -> 5.2e-4
@@ -505,11 +462,7 @@ def plan_transform(
     targets = blvec[:d]
     targets = np.where(flipped_global[None, :], -targets, targets)
 
-    # FLOP model: exact direct vs spread+FFT+interp. The spread term
-    # depends on the backend: the TPU dense-matmul spreader costs
-    # n * prod(nf) per channel, while the CPU scatter costs n * w^d.
-    import jax as _jax
-
+    # FLOP model: exact direct vs spread+FFT+interp.
     direct_cost = 8.0 * nsrc * nbl
     x_ext = [TWO_PI * fmax / speed_of_light] * d
     if d == 2:
@@ -523,7 +476,7 @@ def plan_transform(
     else:
         # 3D (non-coplanar, finufft nufft3d3 parity; ref cpu/nufft.py:
         # 62-118) via the low-rank-z 2D factorization: a full 3D fine
-        # grid is HBM-infeasible and XLA scatter serializes, so the z
+        # grid does not fit in device memory, so the z
         # phase factors as K Chebyshev modes batched through the 2D
         # spread (transform.plan_type3_lowrank_z). The z range of the
         # rotated upper-hemisphere source coordinates bounds the
@@ -565,37 +518,10 @@ def plan_transform(
         K = probe_z.K
     w = probe.kernel.w
     C = max(1, npairs * nfeeds**2)
-    on_tpu = _jax.default_backend() == "tpu"
-    if on_tpu:
-        # MXU spread: dense for small grids, (y, x) tile-binned beyond
-        # DENSE_GRID_LIMIT (each source's work is one tile window, not
-        # a grid row). The factor 2 approximates tile-occupancy slack
-        # (capacity x ntiles / nsrc); the MXU's algebraic-intensity
-        # advantage over elementwise work is folded into the constant.
-        from ..nufft.pallas_spread import (
-            pallas_spread_ok,
-            pallas_tile_shape,
-        )
-        from ..nufft.transform import DENSE_GRID_LIMIT, pick_tile_shape
-
-        nfy, nfx = probe.nf
-        if nfy * nfx > DENSE_GRID_LIMIT:
-            m2 = 2 * (w // 2 + 2)
-            pty, psx = pallas_tile_shape(probe.nf, w, 2 * C)
-            if pallas_spread_ok(
-                probe.nf, w, pty, psx, 2 * C, int(nsrc), np.float32
-            ):
-                # Pallas band kernel: occupancy-proportional window
-                # work, no capacity slack (measured 10x the tile scan).
-                per_mode = 1.0 * nsrc * (pty + m2) * (psx + m2)
-            else:
-                ty, sx = pick_tile_shape(probe.nf, w, 2)
-                tyw = -(-(ty + m2) // 8) * 8
-                per_mode = 2.0 * nsrc * tyw * (sx + m2)
-        else:
-            per_mode = 1.0 * nsrc * float(nfy * nfx)
-    else:
-        per_mode = 16.0 * nsrc * w**2
+    # Spreading is priced at 16 * nsrc * w^2 per channel on every backend.
+    # The constant is not calibrated on the GPU (no measurement yet); it
+    # decides direct vs NUFFT.
+    per_mode = 16.0 * nsrc * w**2
     spread_cost = K * per_mode
     nf_cells = float(np.prod(probe.nf))
     nufft_cost = (
@@ -676,29 +602,10 @@ def select_gridded_path(
             "some axis, mode grid %s); expect degraded accuracy in "
             "float32.", xplan.nf,
         )
-    # MXU-utilization crossover (measured on v5e): the exact path's
-    # factor einsum tiles its (C*nmy, nmx) output onto the 128x128
-    # systolic array, so at SMALL channel counts (C*nm < ~128) it runs
-    # at ~10% utilization while its trig/complex factor build -- which
-    # is C-independent VPU work -- dominates; the ES dense spread +
-    # FFT is 1.4-2x faster there (24h banded row: 42 -> 20.8 ms,
-    # outputs within the fp32 accuracy class at 2.3e-6). At large C
-    # the exact einsum fills the MXU (~75% peak on the north-star
-    # row's 2812 channels) and its strictly-fewer MACs win. TPU-only:
-    # on fp64 backends the default eps (1e-13) would force a w=16 ES
-    # kernel and the exact path's zero truncation error matters.
-    import jax as _jax
-
-    c_tot = max(1, npairs) * nfeeds**2
-    prefer_es = t1_env == "es" or (
-        t1_env == "auto"
-        and _jax.default_backend() == "tpu"
-        and c_tot * int(min(xplan.nf)) < 128
-        and (eps is None or eps >= 1e-7)
-    )
+    # By default the exact path runs whenever the mode grid fits; the
+    # crossover with the ES + FFT pipeline has not been measured on the GPU.
     if t1_env == "exact" or (
-        not prefer_es
-        and t1_env != "es"
+        t1_env != "es"
         and f32_safe
         and int(np.prod(xplan.nf)) <= DENSE_GRID_LIMIT
     ):

@@ -276,18 +276,15 @@ def build_program(cfg: ProgramConfig):
 
     # Same-grid tabulated beam lists (eigenbeam bases, per-antenna CST
     # sweeps) fuse into ONE interpolation + ONE pair einsum per block;
-    # per-beam/per-pair op counts otherwise dominate device time
-    # (measured ~2.8 ms/channel of pure dispatch at K=8 on v5e).
+    # per-beam/per-pair op counts otherwise dominate device time.
     pairs_arr = np.asarray(
         kl_pairs if use_basis else list(pair_plan.pairs), dtype=np.int64
     ).reshape(-1, 2)
     pair_i, pair_j = pairs_arr[:, 0], pairs_arr[:, 1]
 
     # Pair routing partitions the baseline list; assembling per-pair
-    # results via .at[sel].set() lowers to an XLA scatter, which runs
-    # sequentially per index on TPU (~14 ms for 63k baselines -- it was
-    # the single hottest op of the gridded headline program, for an
-    # identity permutation). Concatenate in routing order instead and
+    # results via .at[sel].set() lowers to an XLA scatter, even for an
+    # identity permutation. Concatenate in routing order instead and
     # apply one static inverse-permutation take (free: static-index
     # takes compile to copies), or nothing when routing is in order.
     if not use_basis:
@@ -488,17 +485,12 @@ def build_program(cfg: ProgramConfig):
             # Under shard_map the scan carry varies over the mesh axes
             # (its updates depend on sharded inputs); mark the zero init
             # accordingly for the varying-manual-axes checker.
-            if hasattr(jax.lax, "pcast"):
-                _mark = lambda a: jax.lax.pcast(  # noqa: E731
+            init = jax.tree.map(
+                lambda a: jax.lax.pcast(
                     a, tuple(mesh.axis_names), to="varying"
-                )
-            elif hasattr(jax.lax, "pvary"):  # pragma: no cover - old jax
-                _mark = lambda a: jax.lax.pvary(  # noqa: E731
-                    a, tuple(mesh.axis_names)
-                )
-            else:  # pragma: no cover - very old jax
-                _mark = lambda a: a  # noqa: E731
-            init = jax.tree.map(_mark, init)
+                ),
+                init,
+            )
 
         if banded and not band_compact:
             # Horizon-band scan: only the per-time ACTIVE blocks run
@@ -691,8 +683,7 @@ def build_program(cfg: ProgramConfig):
                 beamtab_a, act_idx_a=None, act_val_a=None):
         # Stacked beam tables travel as an INPUT, not a closure
         # constant: a multi-MB constant dominates the serialized HLO
-        # and with it the remote-TPU AOT compile time (minutes vs
-        # seconds for the 37-beam program).
+        # and with it the compile time.
         beamtab = beamtab_a if batched_beams is not None else None
         coh_a = _unship_complex(coh_ship_a, coh_was_complex)
         if mesh is not None and n_fdev > 1:
@@ -709,9 +700,8 @@ def build_program(cfg: ProgramConfig):
             if band_compact:
                 # Gather the K active blocks BEFORE the coordinate
                 # chain: the equatorial vectors are time-invariant, so
-                # slicing them (one contiguous-dynamic-slice scan, the
-                # measured-fast copy pattern on this TPU; flat gathers
-                # are ~150 ns/element) lets aberration, normalization,
+                # slicing them (one contiguous-dynamic-slice scan) lets
+                # aberration, normalization,
                 # rotation, az/za, beam eval, coherency, bin-sort and
                 # spread ALL pay (K_band * block) instead of nsrc.
                 # Padded table rows re-copy block 0 with weight 0 --
@@ -751,8 +741,8 @@ def build_program(cfg: ProgramConfig):
             az, za = enu_to_az_za(topo_hi[0], topo_hi[1], orientation="uvbeam")
 
             if freq_vmap:
-                # Batch all frequencies into one program (MXU-friendly;
-                # a scan of tiny per-freq bodies is dispatch-bound).
+                # Batch all frequencies into one program (larger matmuls;
+                # a scan of tiny per-freq bodies is launch-bound).
                 vis_t = jax.vmap(
                     lambda fi: per_freq(
                         topo, az, za, mask_up, coh_t, freqs_a, gshift,
@@ -771,11 +761,9 @@ def build_program(cfg: ProgramConfig):
                 )
             return carry, vis_t  # (nfreq, nbl, nfeeds, nfeeds)
 
-        # NOTE (round-4 negative result): vmapping the time axis for
-        # small extents (times are independent; the scan carry is None)
-        # was measured WORSE on v5e -- tutorial device 13.3 -> 22.6 ms,
-        # gridded unchanged. The batched program's working set loses the
-        # scan's VMEM-resident pipelining; the scan is not dispatch-bound.
+        # Times are independent (the scan carry is None); a scan keeps
+        # the working set to one time's. Vmapping small time extents has
+        # not been measured on the GPU.
         _, vis = jax.lax.scan(
             per_time,
             None,
@@ -788,9 +776,7 @@ def build_program(cfg: ProgramConfig):
             # lift them to the front for the host float64 combine.
             return jnp.moveaxis(vis, (2, 3), (0, 1))
         # (nt_local, nfreq, nbl, nfeeds, nfeeds); returned as one stacked
-        # (2, ...) real array -- complex buffers cannot cross the
-        # executable boundary on some experimental TPU runtimes, and a
-        # single transfer beats two on relayed links.
+        # (2, ...) real array: one transfer for both planes.
         return jnp.stack([jnp.real(vis), jnp.imag(vis)])
 
     return program

@@ -9,7 +9,7 @@ literature-value tests (GMST, obliquity, precession rate, aberration
 constant) and by the reference's own tolerance chain.
 
 If astropy/pyerfa ever become available, regenerate with them instead and
-tighten the tolerance (see VERDICT round-1 item 5).
+tighten the tolerance .
 """
 
 import numpy as np

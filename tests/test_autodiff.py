@@ -178,8 +178,8 @@ def test_ds_path_rejected():
 
     os.environ["FFTVIS_DS"] = "1"
     try:
-        # DS engages only on fp32 compute (precision=1 here; on fp64-less
-        # TPU hardware precision=2 also resolves to fp32).
+        # DS engages only on fp32 compute (precision=1 here; on the GPU
+        # precision=2 also resolves to fp32).
         kw = _case(rng, force_use_type3=True)
         kw["precision"] = 1
         with pytest.raises(ValueError, match="double-single"):

@@ -125,13 +125,13 @@ class TestEngineEquivalence:
         scale = np.abs(v_ref).max()
         assert np.abs(v_band - v_ref).max() / scale < 1e-11
 
-    @pytest.mark.parametrize("spreader", ["auto", "pallas"])
+    @pytest.mark.parametrize("spreader", ["auto", "dense"])
     def test_type3_banding_compacts(self, spreader, monkeypatch, caplog):
         """Type-3 bands via per-time COMPACTION (one gathered mega-block,
         exactly one spread + post-pass per (time, freq)) when the spread
-        is occupancy-proportional -- the Pallas band kernel or the dense/
-        fallback paths. A banded block SCAN was measured 0.44x for type-3
-        (per-block O(grid) overlap-add post-pass); compaction is the fix."""
+        is occupancy-proportional -- the scatter (auto) and dense
+        spreaders. A banded block SCAN would pay the O(grid) spread
+        post-pass once per block; compaction pays it once per time."""
         from fftvis_tpu.beams.interface import (
             BeamInterface,
             prepare_beam_unpolarized,

@@ -1,11 +1,11 @@
 """Batched hot-path equivalence: stacked beam evaluation, fused pair
 coherency, and scatter-free pair assembly.
 
-These paths exist purely for TPU dispatch efficiency (one interpolation /
+These paths exist purely for device efficiency (one interpolation /
 one contraction / one permutation instead of per-beam, per-pair ops); each
 must be bit-compatible-or-tight with the straightforward per-item form the
 oracle tests validate. Mirrors the reference's evaluator unit tests
-(ref tests/test_cpu_beams.py:708-854) at the layer the TPU engine actually
+(ref tests/test_cpu_beams.py:708-854) at the layer the JAX engine actually
 executes.
 """
 

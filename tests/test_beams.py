@@ -289,7 +289,7 @@ def test_uvbeam_simulation_vs_oracle():
     """End-to-end simulate with an adapted UVBeam == direct oracle.
 
     The fftvis counterpart of loading a CST UVBeam and simulating
-    (ref tests/test_wrapper.py:61-100): same adapted beam through the TPU
+    (ref tests/test_wrapper.py:61-100): same adapted beam through the JAX
     engine and the exact direct engine, polarized, with frequency
     interpolation exercised (sim freqs between the beam's tabulated ones).
     """
@@ -359,7 +359,7 @@ def test_short_za_grid_raises(caplog, monkeypatch):
 
 
 def test_az_za_simple_vs_rect_bivariate_spline_bound():
-    """Bound the 'az_za_simple' backend deviation (VERDICT round-2 item 8).
+    """Bound the 'az_za_simple' backend deviation.
 
     The reference's az_za_simple is pyuvdata's RectBivariateSpline
     (kx=ky=3, not-a-knot boundaries); this package maps the name onto

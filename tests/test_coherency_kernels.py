@@ -2,10 +2,10 @@
 
 The reference validates each of its four Numba coherency kernels against an
 explicit np.einsum specification (ref tests/test_cpu_beams.py:99-109,
-861-875). The TPU engine computes the same algebra as broadcast
-multiply-adds (dot_generals with size-2 contractions force layout copies on
-TPU); these tests pin the math to the einsum formulas independently of that
-implementation choice.
+861-875). The JAX engine computes the same algebra as broadcast
+multiply-adds (a dot_general with size-2 contractions would need layout
+copies); these tests pin the math to the einsum formulas independently of
+that implementation choice.
 
 The second half guards the identity-memoized digest cache
 (core/hashing.py): content keys MUST track in-place mutation, or the

@@ -208,7 +208,7 @@ def test_precession_fw_angles_iau2006_literature():
 def test_golden_coordinate_chain_snapshot():
     """Composed ICRS->ENU chain matches the checked-in golden snapshot.
 
-    Drift detection for erfa_lite (VERDICT round-1 item 5): any numerical
+    Drift detection for erfa_lite: any numerical
     change to precession/nutation/ERA/site-basis composition beyond 0.01
     arcsec fails here, with no astropy needed at test time. Regenerate
     deliberately with tests/data/make_golden_coords.py.

@@ -1,6 +1,6 @@
 """External-truth anchors for the ERFA-lite coordinate chain.
 
-VERDICT round-2 item 2: ``coords/erfa_lite.py`` was validated only by
+``coords/erfa_lite.py`` was validated only by
 self-generated golden snapshots (drift detection) and literature-constant
 spot checks; the in-repo direct-DFT oracle SHARES the chain, so a
 systematic error (wrong nutation sign, transposed precession matrix, bad

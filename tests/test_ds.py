@@ -1,10 +1,11 @@
 """Double-single arithmetic: each primitive vs float64 ground truth.
 
 The DS layer (fftvis_tpu/tpu/ds.py) underpins the fp64-class direct path
-on TPU; these tests pin every building block at its expected accuracy
-(error-free transformations exactly; composite ops at ~2^-45; sincos at
-the f32-transcendental floor) on the CPU backend, where float64 reference
-values are available in-process.
+of the fp32 engine; these tests pin every building block at its expected
+accuracy (error-free transformations exactly; composite ops at ~2^-45;
+sincos at the f32-transcendental floor) on the CPU backend, where float64
+reference values are available in-process, and the ``gpu``-marked class
+repeats the invariants jitted on the card.
 """
 
 import jax.numpy as jnp
@@ -179,3 +180,46 @@ class TestReduction:
             x.sum(axis=1),
             rtol=2**-40, atol=0,
         )
+
+
+@pytest.mark.gpu
+class TestJittedOnGPU:
+    """The same invariants with each primitive inside one jitted program.
+
+    XLA on the GPU may contract a multiply and an add into one FMA, which
+    would break the error-free transformations; eager dispatch (the tests
+    above) never fuses, so these compile the primitives first.
+    """
+
+    def test_two_sum_and_two_prod_exact(self):
+        import jax
+
+        a, b = _f32(_rand()), _f32(_rand())
+        s, e = jax.jit(ds.two_sum)(a, b)
+        p, q = jax.jit(ds.two_prod)(a, b)
+        a64, b64 = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        np.testing.assert_array_equal(_val((s, e)), a64 + b64)
+        np.testing.assert_array_equal(_val((p, q)), a64 * b64)
+
+    def test_ds_mul_and_mod_n(self):
+        import jax
+
+        a64, b64 = _rand(), _rand()
+        got = _val(jax.jit(ds.ds_mul)(*_ds_of(a64), *_ds_of(b64)))
+        assert np.max(np.abs(got - a64 * b64) / np.abs(a64 * b64)) < 2**-44
+        n = 4096
+        y = RNG.uniform(-40, 40, 20000) * n
+        h, l = jax.jit(ds.ds_mod_n, static_argnums=2)(*_ds_of(y), n)
+        d = np.abs(_val((h, l)) - np.mod(y, n))
+        assert np.minimum(d, n - d).max() < np.abs(y).max() * 2**-45
+
+    def test_sincos_accuracy(self):
+        import jax
+
+        theta = RNG.uniform(-3e4, 3e4, 20000)
+        s, c = jax.jit(ds.ds_sincos)(*_ds_of(theta))
+        err = np.hypot(
+            np.asarray(s, np.float64) - np.sin(theta),
+            np.asarray(c, np.float64) - np.cos(theta),
+        )
+        assert err.max() < 5e-7

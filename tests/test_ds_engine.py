@@ -5,10 +5,10 @@ through the exact direct path with two-float arithmetic (engine.simulate
 use_ds; tpu/ds.py). These tests pin the routing contract and the accuracy
 improvement on the CPU backend. NOTE: XLA:CPU's fusion pipeline duplicates
 subexpressions with one-ulp rounding differences, which costs the DS chain
-part of its budget on CPU; the full fp64-class win (~100x over plain f32,
-measured 7e-7 vs 7e-5 on a wide array with a gentle beam) is realized on
-TPU, where compilation preserves the error-free transformations exactly.
-CPU assertions below are set at what XLA:CPU actually delivers.
+part of its budget on CPU; the full fp64-class win is realized where
+compilation preserves the error-free transformations exactly (the GPU:
+tests/test_ds.py's ``gpu``-marked tests). CPU assertions below are set at
+what XLA:CPU actually delivers.
 """
 
 import logging
@@ -64,7 +64,7 @@ class TestRouting:
 
     def test_multi_pair_routes_through_ds(self, monkeypatch):
         """precision=2 semantics must be the same for per-antenna-beam sims
-        as for single-beam ones (VERDICT round-2 item 3): multi-pair
+        as for single-beam ones: multi-pair
         routing runs through the DS path, complex128 out."""
         monkeypatch.setenv("FFTVIS_DS", "1")
         kw = _problem(span=60.0, nsrc=40, polarized=True)
@@ -78,9 +78,9 @@ class TestRouting:
 class TestDsCoords:
     """DS grid coordinates for the fp32 type-1 path (FFTVIS_DS_COORDS).
 
-    TPU-only by default (XLA:CPU fusion breaks the error-free transforms;
-    on hardware the measured HERA-331 polarized row improves 1.9e-5 ->
-    4.1e-6, under the north-star 1e-5 gate). These CPU tests pin the
+    On by default only on the GPU (XLA:CPU fusion breaks the error-free
+    transforms; the HERA-331 polarized north star is the row it guards
+    against the 1e-5 gate). These CPU tests pin the
     mechanics: forced-on must produce a correct fp32-class result and the
     program must compile promptly (optimization-barrier regression guard
     -- without it XLA:CPU compile hangs for minutes).
@@ -191,9 +191,9 @@ class TestAccuracy:
     def test_ds_multi_pair_beats_plain_f32(self, monkeypatch):
         """2 distinct beams + beam_idx (multi-pair routing) through the DS
         path: must match the fp64 reference much closer than plain fp32 on
-        a wide array (VERDICT round-2 item 3; the full ~1e-7 win is a
-        hardware property, asserted in bench.py -- XLA:CPU fusion costs
-        the EFT chain part of its budget here)."""
+        a wide array (the full ~1e-7 win is a property of the GPU
+        compilation -- XLA:CPU fusion costs the EFT chain part of its
+        budget here)."""
         kw = _problem(span=2000.0, polarized=True)
         kw["beam"] = [GaussianBeam(diameter=12.0), GaussianBeam(diameter=13.0)]
         kw["beam_idx"] = np.array([0, 1, 0, 1, 0, 1])

@@ -297,7 +297,7 @@ def test_eps_loosened():
 
 
 def test_strip_spreader_matches_oracle(monkeypatch):
-    """The strip-binned spreader (large-grid TPU path), forced on CPU."""
+    """The strip-binned spreader (FFTVIS_SPREADER=strip), forced on CPU."""
     monkeypatch.setenv("FFTVIS_SPREADER", "strip")
     rng = np.random.default_rng(15)
     ants = _random_ants(rng, 6)
@@ -478,7 +478,7 @@ def test_per_antenna_beam_diversity(polarized, beam_kind):
 
 def test_horizon_culling_matches_oracle_full_sky():
     """A full-sky catalog (half of it never visible) must match the
-    no-culling oracle: static horizon culling (engine-side, TPU-shaped
+    no-culling oracle: static horizon culling (engine-side, static-shape
     analogue of ref cpu_simulate.py:940-945 dynamic compaction) may only
     remove exact zeros."""
     rng = np.random.default_rng(77)

@@ -86,19 +86,54 @@ class TestFlopModel:
         s = mfu_string(1e9, 1e-3)
         assert "GFLOP" in s and "TFLOP/s" in s
         peak, label = chip_peak_flops()
-        # CPU test backend: no TPU peak -> mfu omitted, label still set.
+        # CPU test backend: no device peak -> mfu omitted, label still set.
         if peak is None:
             assert "mfu" not in s
         else:
             assert "mfu=" in s
 
-    def test_peak_table_passes(self):
-        # The pass-count rule: 'high' (bf16x3) peak is 2x the 'float32'
-        # (bf16x6) peak on any TPU; on CPU both are None.
-        p6, _ = chip_peak_flops("float32")
-        p3, _ = chip_peak_flops("high")
-        if p6 is not None:
-            assert p3 == pytest.approx(2 * p6)
+    def test_cpu_backend_has_no_peak(self):
+        peak, label = chip_peak_flops("float32")
+        assert peak is None and label
+
+
+class TestPeakTable:
+    """The H100 table (NVIDIA data sheet, SXM, dense) and its lookups."""
+
+    class _Dev:
+        platform = "gpu"
+
+        def __init__(self, kind):
+            self.device_kind = kind
+
+    def _patch(self, monkeypatch, kind):
+        import jax
+
+        monkeypatch.setattr(jax, "devices", lambda *a: [self._Dev(kind)])
+
+    def test_h100_rates(self):
+        from fftvis_tpu.flops import PEAKS
+
+        h100 = PEAKS["NVIDIA H100 80GB HBM3"]
+        assert h100 == {"float32": 67e12, "tf32": 495e12, "bf16": 989e12,
+                        "hbm_bytes_per_s": 3.35e12}
+
+    @pytest.mark.parametrize(
+        "prec,rate",
+        [("float32", 67e12), ("highest", 67e12), ("tensorfloat32", 495e12),
+         ("bfloat16", 989e12)],
+    )
+    def test_precision_selects_unit(self, monkeypatch, prec, rate):
+        self._patch(monkeypatch, "NVIDIA H100 80GB HBM3")
+        peak, label = chip_peak_flops(prec)
+        assert peak == rate and "H100" in label
+
+    def test_unknown_gpu_raises(self, monkeypatch):
+        self._patch(monkeypatch, "NVIDIA Imaginary 9000")
+        with pytest.raises(KeyError, match="Imaginary"):
+            chip_peak_flops("float32")
+        with pytest.raises(KeyError):
+            mfu_string(1e9, 1e-3)
 
 
 class TestCacheKeyConstruction:

@@ -142,7 +142,7 @@ def test_fuzz_tiled_spreader_vs_oracle(seed, monkeypatch):
 
 def _draw_gridded_case(seed):
     """Random GRIDDED-lattice configuration: the exact separable-DFT path,
-    its ES+FFT small-C crossover, the outer-product MXU form, and horizon
+    its ES+FFT small-C crossover, the outer-product matmul form, and horizon
     banding are reachable only on lattice arrays, which the positions the
     plain fuzz draws never form."""
     from fftvis_tpu.geometry import hex_array, square_array

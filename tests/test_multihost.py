@@ -1,10 +1,9 @@
-"""Two-process multi-host (DCN-analogue) simulation test.
+"""Two-process multi-host simulation test.
 
-VERDICT round-2 item 6: the multi-host story must be code, not docstrings.
 This spawns TWO separate processes on localhost, each with 4 forced CPU
 devices, joined via ``jax.distributed`` (``init_distributed``) into one
-8-device global runtime -- the CPU-rig analogue of a 2-host TPU pod over
-DCN (the reference's equivalent surface is the Ray localhost fan-out,
+8-device global runtime -- the CPU-rig analogue of a 2-host GPU cluster
+(the reference's equivalent surface is the Ray localhost fan-out,
 ref cpu_simulate.py:714-837, tests/test_cpu_simulate.py:1090).
 
 Each process runs the SAME polarized simulation two ways and compares:

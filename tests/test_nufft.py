@@ -139,11 +139,11 @@ def test_type1_exact_matches_direct():
 
 
 def test_type1_exact_outer_product_form_matches(monkeypatch):
-    """The large-C outer-product MXU formulation (E = ey*ex materialized,
+    """The large-C outer-product matmul formulation (E = ey*ex materialized,
     one (C, n) @ (n, nmy*nmx) matmul) is algebraically the factored einsum
     with a different tile geometry: both branches must match the direct
     sum, and auto must engage the outer form at 2C >= 128 with nm^2 >= 128
-    (the north-star regime; measured 1.3x device on v5e)."""
+    (the north-star regime)."""
     from fftvis_tpu.nufft.transform import Type1ExactExecutor, plan_type1_exact
 
     rng = np.random.default_rng(33)
@@ -169,9 +169,8 @@ def test_type1_exact_outer_product_form_matches(monkeypatch):
 def test_type1_exact_karatsuba_complex_contract(monkeypatch):
     """The 3-real-matmul (Karatsuba/Gauss) complex contraction of the
     outer form must match the plain 4-matmul lowering and the direct sum
-    (opt-in knob FFTVIS_EXACT_CMM=karatsuba; measured a wash on the
-    north-star row on v5e -- see NOTES.md -- but kept for geometries
-    where the contraction dominates harder)."""
+    (opt-in knob FFTVIS_EXACT_CMM=karatsuba, for geometries where the
+    contraction dominates)."""
     from fftvis_tpu.nufft.transform import Type1ExactExecutor, plan_type1_exact
 
     rng = np.random.default_rng(34)
@@ -569,7 +568,7 @@ def test_strip_spreader_unit():
 
 
 def test_ztaps_3d_spread_matches_scatter():
-    """The TPU 3D z-tap spreader == scatter reference, with wrap sources."""
+    """The 3D z-tap spreader == scatter reference, with wrap sources."""
     from fftvis_tpu.nufft.kernels import ESKernel
     from fftvis_tpu.nufft.transform import _spread_3d_ztaps, _spread_scatter
 
@@ -591,7 +590,7 @@ def test_ztaps_3d_spread_matches_scatter():
 def test_type3_lowrank_z_matches_direct(zspread, eps, zlo):
     """3D type-3 via the low-rank Chebyshev z factorization == dense DFT.
 
-    TPU-native replacement for finufft nufft3d3 (ref cpu/nufft.py:62-118):
+    Device replacement for finufft nufft3d3 (ref cpu/nufft.py:62-118):
     the error must track the requested eps and K must stay small for
     near-coplanar targets.
     """
@@ -709,10 +708,10 @@ def test_type3_lowrank_z_executor_subset():
     "nf,n,C", [((64, 120), 700, 2), ((256, 384), 3000, 1), ((640, 1200), 9000, 2)]
 )
 def test_tiled_spreader_matches_scatter(nf, n, C):
-    """The (y, x) tile-binned MXU spreader == scatter reference exactly.
+    """The (y, x) tile-binned matmul spreader == scatter reference exactly.
 
-    This is the production large-grid spread path (work per source is one
-    tile window instead of a full grid row; supersedes the strip form).
+    Selected by FFTVIS_SPREADER=tiled (work per source is one tile window
+    instead of a full grid row; supersedes the strip form).
     """
     from fftvis_tpu.nufft.kernels import ESKernel
     from fftvis_tpu.nufft.transform import (

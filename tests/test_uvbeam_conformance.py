@@ -1,4 +1,4 @@
-"""pyuvdata-UVBeam attribute-layout conformance (VERDICT round-2 item 7).
+"""pyuvdata-UVBeam attribute-layout conformance.
 
 pyuvdata is not installable in this image, so ``GriddedBeam.from_uvbeam``
 is duck-typed; these tests drive it with synthetic objects replicating

@@ -105,13 +105,15 @@ class TestValidation:
         with pytest.raises(ValueError, match="Unsupported backend"):
             simulate_vis(**_kwargs(rng), backend="quantum")
 
-    def test_gpu_backend_stub(self):
-        """Parity with the reference's explicit GPU stubs
-        (ref tests/test_gpu_*.py: NotImplementedError)."""
-        with pytest.raises(NotImplementedError):
-            create_simulation_engine(backend="gpu")
-        with pytest.raises(NotImplementedError):
-            create_beam_evaluator(backend="gpu")
+    def test_gpu_backend_maps_to_jax_engine(self):
+        """backend="gpu" selects the JAX engine and evaluator (the
+        reference's GPU stubs raise; here the engine runs on the card)."""
+        from fftvis_tpu import TPUBeamEvaluator, TPUSimulationEngine
+
+        assert isinstance(
+            create_simulation_engine(backend="gpu"), TPUSimulationEngine
+        )
+        assert isinstance(create_beam_evaluator(backend="gpu"), TPUBeamEvaluator)
 
     def test_beam_idx_inference_error(self):
         rng = np.random.default_rng(0)
@@ -230,25 +232,33 @@ class TestEvaluatorBridge:
         np.testing.assert_allclose(got, want, atol=1e-12)
 
 
-class TestGPUStubs:
-    """Stubs must fail loudly (ref tests/test_gpu_nufft.py:7-65)."""
+class TestGPUBackend:
+    """backend="gpu" runs the JAX engine end to end (the reference's GPU
+    backend is a stub, ref tests/test_gpu_nufft.py:7-65)."""
 
-    def test_engine_stub(self):
-        from fftvis_tpu.gpu import GPUSimulationEngine
+    @pytest.mark.parametrize("polarized", [False, True])
+    def test_simulate_vis_gpu_equals_tpu_name(self, polarized):
+        rng = np.random.default_rng(3)
+        kw = _kwargs(rng, nfreq=2, ntimes=2)
+        kw["polarized"] = polarized
+        got = simulate_vis(backend="gpu", **kw)
+        want = simulate_vis(backend="tpu", **kw)
+        np.testing.assert_array_equal(got, want)
 
-        with pytest.raises(NotImplementedError):
-            GPUSimulationEngine()
+    def test_gpu_backend_accepts_a_mesh(self):
+        from fftvis_tpu.parallel.mesh import make_mesh
 
-    def test_nufft_stubs(self):
-        from fftvis_tpu.gpu.gpu_simulate import (
-            gpu_beam_interpolation,
-            gpu_nufft2d,
-            gpu_nufft3d,
-        )
+        rng = np.random.default_rng(4)
+        kw = _kwargs(rng, nfreq=2, ntimes=2)
+        want = simulate_vis(backend="gpu", **kw)
+        got = simulate_vis(backend="gpu", mesh=make_mesh(time=2), **kw)
+        np.testing.assert_allclose(got, want, atol=1e-9 * np.abs(want).max())
 
-        for fn in (gpu_nufft2d, gpu_nufft3d, gpu_beam_interpolation):
-            with pytest.raises(NotImplementedError):
-                fn()
+    def test_cli_accepts_gpu_backend(self):
+        from fftvis_tpu.cli import build_parser
+
+        args = build_parser().parse_args(["run-profile", "--backend", "gpu"])
+        assert args.backend == "gpu"
 
 
 class TestEngineABC:
@@ -487,9 +497,9 @@ def test_future_done_warns_once_without_is_ready(caplog):
 
 class TestUpsampleDefault:
     """upsample_factor default (None) must resolve to sigma=2 on EVERY
-    pipeline. Round-4 negative result, pinned here: auto-lowering f32
-    type-3 to sigma=1.25 measured 1.5x faster devices but degraded
-    accuracy config-dependently to ~5e-4 relative (kernel/deconv dynamic
+    pipeline. Pinned here: auto-lowering f32 type-3 to sigma=1.25 would
+    be faster but degrades accuracy config-dependently to ~5e-4 relative
+    (kernel/deconv dynamic
     range at the narrower band; NOT rescued by DS coordinates) -- see
     planning.plan_transform's docstring. Explicit sigma=1.25 remains
     honored for callers that accept that error class."""
